@@ -78,6 +78,14 @@ __device__ __forceinline__ float column_sum(float* __restrict__ sRed, float part
   return s;
 }
 
+// Sum of v over the warp's 32 lanes by a fixed xor butterfly: every lane
+// gets the same bits, and the order never changes from run to run.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = kPairs / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 }  // namespace fastsmc
 
 // Instantiate `launch<RPW>(args...)` for the row counts 1..16 (K <= 128).

@@ -6,9 +6,11 @@ mode, exact profile. Each kernel has a plain PyTorch version in this module:
   * :func:`forward` launches ``csrc/hmm_forward.cu`` (replaces the Pallas
     ``_make_fwd_kernel``); :func:`forward_reference` is its plain version.
   * :func:`backward_combine` launches ``csrc/hmm_backward.cu`` (replaces
-    ``_make_bwd_kernel``) for the ``posterior`` and ``threshold_sums``
-    outputs; :func:`backward_combine_reference` is its plain version and
-    covers all six :class:`BwdOutputs`.
+    ``_make_bwd_kernel``) for all six :class:`BwdOutputs`, and for the two
+    sums over pairs ``csrc/hmm_reduce.cu`` (:func:`block_reduce`), which
+    adds the backward kernel's per-block partials;
+    :func:`backward_combine_reference` and :func:`block_reduce_reference`
+    are their plain versions.
 
 A wrapper runs the plain version only for tensors on the CPU. For a CUDA
 tensor it launches its kernel or raises; ``LAUNCHES`` counts the launches.
@@ -42,8 +44,11 @@ class BwdOutputs(NamedTuple):
     major_minor_sums: bool = False       # 00/01/11-partitioned pair sums
 
 
-# outputs the backward kernel produces; the others are plain-only for now
-KERNEL_OUTPUTS = ("posterior", "threshold_sums")
+# outputs the backward kernel produces
+KERNEL_OUTPUTS = BwdOutputs._fields
+# pairs a backward-kernel block owns (kPairs in csrc/hmm_common.cuh): the
+# over-pairs sums leave one partial per block
+PAIRS_PER_BLOCK = 32
 
 
 def resolve_device(device) -> torch.device:
@@ -127,6 +132,12 @@ def backward_combine_reference(Mb, em, obs, alpha, ops, mask, K: int,
     return out
 
 
+def block_reduce_reference(part: torch.Tensor) -> torch.Tensor:
+    """``part[0] + part[1] + ...`` over the leading (block) axis, in f64,
+    rounded once to f32."""
+    return part.double().sum(dim=0).float()
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -177,41 +188,68 @@ def forward(Mf, em, obs, isp, ops, mask) -> torch.Tensor:
     return alpha
 
 
+def block_reduce(part: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading (block) axis of ``part`` ``[nblk, ...]`` f32, in
+    a fixed order: the CUDA reduction kernel for a CUDA tensor,
+    :func:`block_reduce_reference` for a CPU tensor."""
+    if part.device.type == "cpu":
+        return block_reduce_reference(part)
+    _check("part", part, torch.float32, tuple(part.shape))
+    out = torch.empty(part.shape[1:], dtype=torch.float32, device=part.device)
+    rc = load_library().fastsmc_block_reduce(
+        part.data_ptr(), out.data_ptr(), part.shape[0], out.numel(),
+        part.device.index or 0,
+        torch.cuda.current_stream(part.device).cuda_stream)
+    _raise_on(rc, "block_reduce")
+    LAUNCHES["hmm_block_reduce"] += 1
+    return out
+
+
 def backward_combine(Mb, em, obs, alpha, ops, mask, K: int,
                      state_threshold: int, outs: BwdOutputs,
                      exp_times=None) -> dict:
     """Requested :class:`BwdOutputs` at padded shapes (see
-    :func:`backward_combine_reference`): the CUDA backward+combine kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    :func:`backward_combine_reference`): the CUDA backward+combine kernel,
+    and the block reduction for the sums over pairs, for CUDA tensors; the
+    plain version for CPU tensors. ``exp_times`` ``[KP]`` is needed for
+    ``per_pair_mean``."""
     if obs.device.type == "cpu":
         return backward_combine_reference(Mb, em, obs, alpha, ops, mask, K,
                                           state_threshold, outs, exp_times)
-    other = [n for n in BwdOutputs._fields
-             if getattr(outs, n) and n not in KERNEL_OUTPUTS]
-    if other:
-        raise NotImplementedError(f"outputs {other} have no CUDA kernel yet")
     T, P, G, KP = _check_inputs(Mb, em, obs, ops, mask)
     _check("alpha", alpha, torch.float32, (T, KP, P))
     if not 0 <= state_threshold <= K <= KP:
         raise ValueError(f"need 0 <= state_threshold={state_threshold} <= "
                          f"K={K} <= KP={KP}")
-    out = {}
-    if outs.posterior:
-        out["posterior"] = torch.empty((T, KP, P), dtype=torch.float32,
-                                       device=obs.device)
-    if outs.threshold_sums:
-        out["threshold_sums"] = torch.empty((T, P), dtype=torch.float32,
-                                            device=obs.device)
+    if outs.per_pair_mean:
+        if exp_times is None:
+            raise ValueError("per_pair_mean needs exp_times")
+        _check("exp_times", exp_times, torch.float32, (KP,))
+    nblk = -(-P // PAIRS_PER_BLOCK)
+    shapes = dict(posterior=(T, KP, P), threshold_sums=(T, P),
+                  per_pair_mean=(T, P), per_pair_map=(T, P),
+                  posterior_sums=(nblk, T, KP),
+                  major_minor_sums=(nblk, T, 3, KP))
+    buf = {name: torch.empty(shape, dtype=torch.float32, device=obs.device)
+           for name, shape in shapes.items() if getattr(outs, name)}
+
+    def ptr(name):
+        return buf[name].data_ptr() if name in buf else None
+
     rc = load_library().fastsmc_hmm_backward(
         Mb.data_ptr(), G, em.data_ptr(), obs.data_ptr(), alpha.data_ptr(),
         ops.data_ptr(), mask.data_ptr(),
-        out["posterior"].data_ptr() if outs.posterior else None,
-        out["threshold_sums"].data_ptr() if outs.threshold_sums else None,
+        exp_times.data_ptr() if outs.per_pair_mean else None,
+        ptr("posterior"), ptr("threshold_sums"), ptr("per_pair_mean"),
+        ptr("per_pair_map"), ptr("posterior_sums"), ptr("major_minor_sums"),
         T, P, K, KP, state_threshold, obs.device.index or 0,
         torch.cuda.current_stream(obs.device).cuda_stream)
     _raise_on(rc, "hmm_backward")
     LAUNCHES["hmm_backward"] += 1
-    return out
+    for name in ("posterior_sums", "major_minor_sums"):
+        if name in buf:
+            buf[name] = block_reduce(buf[name])
+    return buf
 
 
 # ---------------------------------------------------------------------------

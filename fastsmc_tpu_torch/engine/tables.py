@@ -51,6 +51,18 @@ class DecodeTables:
     def device(self) -> torch.device:
         return self.Mf.device
 
+    def set_expected_times(self, times) -> None:
+        """Replace ``exp_times[:K]`` (the times the ``per_pair_mean`` output
+        weights the posterior by, e.g. from ASMC's
+        ``--expectedCoalTimesFile``); padded states keep 0."""
+        times = np.asarray(times, np.float32).reshape(-1)
+        if len(times) != self.K:
+            raise ValueError(f"{len(times)} expected times for {self.K} "
+                             "states")
+        e = torch.zeros(self.KP, dtype=torch.float32, device=self.device)
+        e[:self.K] = torch.from_numpy(times).to(self.device)
+        self.exp_times = e
+
     @classmethod
     def from_context(cls, ctx: DecodeContext, device) -> "DecodeTables":
         """Build the tables from a host :class:`DecodeContext`."""

@@ -1,12 +1,14 @@
 """FastSMC pipeline on the GPU: hashing, batched validation, IBD output.
 
-Counterpart of ``fastsmc_tpu/pipelines/fastsmc.py`` for its main path:
-hashing mode, array mode, canonical-window batches, exact profile, the
-reference's default record columns. The GERMLINE2 scan runs natively on a
-producer thread; each candidate is bucketed into the smallest aligned
-power-of-two window holding its 0.5 cM-padded match; a full bucket is one
-batch, decoded by the two CUDA kernels, run-extracted on the card, copied
-to the host and written. Record order equals the JAX package's.
+Counterpart of ``fastsmc_tpu/pipelines/fastsmc.py`` in array mode, exact
+profile, with the reference's record columns. In hashing mode the
+GERMLINE2 scan runs natively on a producer thread; each candidate is
+bucketed into the smallest aligned power-of-two window holding its 0.5
+cM-padded match; a full bucket is one batch. Without hashing every pair of
+the job's slice of the flat pair enumeration is a candidate, decoded over
+the whole chromosome in batches of ``batch_size``. Either way a batch is
+decoded by the two CUDA kernels, run-extracted on the card, copied to the
+host and written. Record order equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from fastsmc_tpu.utils.timer import PhaseTimer
 from ..engine import segments as seg
 from ..engine.hmm import bucket_len
 from ..engine.kernels import GpuDecoder, resolve_device
+from ..writers import IbdTextWriter
+from .asmc import job_pair_range, pairs_from_flat_indices
 
 # batches decoded before their runs are copied to the host and written
 FLUSH_GROUP = 8
@@ -83,7 +87,8 @@ def pad_to_positions(genetic_positions: np.ndarray, to_pos: np.ndarray,
 
 
 class FastSMC:
-    """End-to-end FastSMC run for one job on one CUDA device."""
+    """End-to-end FastSMC run for one job on one CUDA device, with or
+    without hashing."""
 
     def __init__(self, params: DecodingParams,
                  data: Optional[Data] = None,
@@ -105,7 +110,6 @@ class FastSMC:
             "sort_batches": bool(sort_batches),
             "bucket_sites=0": bucket_sites == 0,
             "permissive_window": params.permissive_window,
-            "no-hashing mode": not params.hashing,
             "sequence mode": params.decoding_mode == "sequence",
         }
         unported = [k for k, v in off_path.items() if v]
@@ -158,7 +162,7 @@ class FastSMC:
                 p.do_per_pair_posterior_mean, p.do_per_pair_map,
                 append=append)
         else:
-            self._writer = writers.IbdTextWriter(
+            self._writer = IbdTextWriter(
                 path, self.data.fam_id_list, self.data.iid_list,
                 self.data.chr_number, append=append)
         return path
@@ -355,9 +359,10 @@ class FastSMC:
         so the file is valid up to here, record (finished batches,
         segments, byte offset), and reopen in append mode."""
         out = self.params.ibd_output_path()
+        self._writer.close()
+        # read after close(): it drains the writer thread's queue
         fmt_s = getattr(self._writer, "fmt_s", 0.0)
         deflate_s = getattr(self._writer, "deflate_s", 0.0)
-        self._writer.close()
         offset = os.path.getsize(out)
         path = out + ".progress"
         tmp = path + ".tmp"
@@ -369,6 +374,31 @@ class FastSMC:
         self._writer.deflate_s = deflate_s
 
     # ------------------------------------------------------------------
+    def _run_no_hashing(self):
+        """Every pair of the job's slice of the flat pair enumeration
+        (HMM.cpp:310-364), decoded over the whole chromosome in batches of
+        ``batch_size`` (fastsmc.py:1001-1042); the pairs come from the
+        closed-form flat-index inversion, one batch at a time."""
+        p = self.params
+        L = self.data.sites
+        start, end = job_pair_range(self.data.n_ind, p)
+        for ofs in range(start, end, p.batch_size):
+            h1, h2 = pairs_from_flat_indices(
+                np.arange(ofs, min(ofs + p.batch_size, end)), p.within_only)
+            n = len(h1)
+            self._cpt += n
+            self.stats["cand_site_pairs"] += L * n
+            self._batch_idx += 1
+            self._group.append(dict(
+                hap1=h1.astype(np.int32), hap2=h2.astype(np.int32), n=n,
+                frm=0, t_len=bucket_len(L), s0=0, s1=L, w0=None, w1=None,
+                P=n, need_ages=(p.do_per_pair_posterior_mean
+                                or p.do_per_pair_map),
+                idx=self._batch_idx))
+            if len(self._group) >= FLUSH_GROUP:
+                self._dispatch_group()
+
+    # ------------------------------------------------------------------
     def run(self, verbose: bool = True, resume: bool = False) -> str:
         """Full pipeline (fastsmc.py:1045-1110); returns the output path."""
         if resume:
@@ -377,11 +407,14 @@ class FastSMC:
         self.timer = PhaseTimer()
         progress = self.params.ibd_output_path() + ".progress"
         path = self._open_writer()
-        with self.timer.phase("identification"):
-            scan = HashingScan(self.params, self.data, self._on_match)
-            scan.array_callback = self._on_matches_array
-            scan.run(verbose=verbose)
-        self._drain_buckets()
+        if self.params.hashing:
+            with self.timer.phase("identification"):
+                scan = HashingScan(self.params, self.data, self._on_match)
+                scan.array_callback = self._on_matches_array
+                scan.run(verbose=verbose)
+            self._drain_buckets()
+        else:
+            self._run_no_hashing()
         self._dispatch_group()
         self._writer.close()
         if os.path.exists(progress):

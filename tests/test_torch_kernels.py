@@ -144,6 +144,18 @@ def test_wrappers_take_plain_versions_on_cpu(gpu):
                                atol=1e-5)
 
 
+def test_block_reduce_takes_plain_version_on_cpu():
+    rng = np.random.default_rng(5)
+    part = torch.tensor(rng.random((9, 4, 3, 8), np.float32))
+    before = dict(kernels.LAUNCHES)
+    got = kernels.block_reduce(part)
+    assert dict(kernels.LAUNCHES) == before
+    assert got.dtype == torch.float32 and got.shape == (4, 3, 8)
+    np.testing.assert_allclose(got.numpy(),
+                               part.numpy().astype(np.float64).sum(0),
+                               rtol=1e-7)
+
+
 def test_bucket_len_matches_jax():
     from fastsmc_tpu.engine.hmm import bucket_len as jax_bucket_len
     for n in (1, 63, 64, 65, 200, 1000, 4097):

@@ -100,7 +100,6 @@ OFF_PATH = [
     dict(decode_profile="turbo"), dict(mesh="a device mesh"),
     dict(sort_batches=8), dict(bucket_sites=0),
     dict(params=dict(permissive_window=True)),
-    dict(params=dict(hashing=False)),
     dict(params=dict(decoding_mode="sequence")),
 ]
 
