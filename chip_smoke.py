@@ -34,18 +34,47 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   9. FastSMC without hashing: the example panel, jobs=25, job 1 (1,794
      pairs); and jobs=400, job 1 (112 pairs) on the card against the plain
      versions on the CPU: the same records, floats within relative 1e-4.
+ 10. the kernels' sequence-mode and fast/turbo instantiations against their
+     plain versions (APPROX_ATOL, APPROX_SUM_ATOL: per mode): at T=1024
+     with P=8192 and P=8187, and at the ASMC shape (T=8192, both sums,
+     P=8192 and P=3137); turbo's outputs must equal fast's bit for bit; at
+     T=1024 the fast kernel against the exact one (posterior within
+     PROFILE_POST_ATOL), with the plain versions reading the same
+     difference on the pairs where it is largest;
+ 11. sequence mode: the ASMC golden (tests/fixtures/
+     example_array.seq_asmc_job7of100.npz) and the FastSMC golden
+     (tests/fixtures/example_array.seq.FastSMC.ibd.gz, both made by the JAX
+     package on the CPU) reproduced; the ASMC scale leg in sequence mode,
+     run twice with bit-identical sums;
+ 12. the fast/turbo profiles: the ASMC scale leg on the fast profile at the
+     batch cap its bf16 alpha allows, sums against the exact leg's within
+     PROFILE_SUM_ATOL per pair; the per-pair leg on the fast profile against
+     the exact one's streams (PROFILE_MEAN_RTOL, PROFILE_MAP_AGREE); the
+     FastSMC scale leg on the fast profile, run twice with identical
+     output, bp-F1 >= 0.99 against the exact leg's records; on the example
+     panel turbo equals fast bit for bit (FastSMC records, ASMC
+     sequence-mode sums) and fast is within PROFILE_SUM_ATOL per pair of the
+     sequence-mode golden.
 Each leg clears the launch counts before it runs and fails unless every
 kernel of its path was launched. The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels as JSON. Outputs go to
 build/chip_smoke/ in the checkout.
+
+    python3 chip_smoke.py --ab-parent DIR
+
+adds an A/B of the exact array kernels against those of another checkout
+at DIR (e.g. the parent commit), each called through its own checkout's
+wrappers, in turns, three times each.
 """
 
 from __future__ import annotations
 
+import argparse
 import gzip
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -64,18 +93,68 @@ GOLDEN = os.path.join(REPO, "tests", "fixtures",
                       "example_array.golden.FastSMC.ibd.gz")
 ASMC_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                            "example_array.asmc_job7of100.npz")
+SEQ_ASMC_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                               "example_array.seq_asmc_job7of100.npz")
+SEQ_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                          "example_array.seq.FastSMC.ibd.gz")
 # kernel vs plain version on the card: f32 sums taken in another order in
 # a K=69 product that is renormalised at every site; sums over P pairs
 # get 1e-5 per pair, posterior means (in generations) 1e-5 times the
 # largest expected time, and MAP states may differ only at ties within
 # KERNEL_ATOL
 KERNEL_ATOL = 1e-5
+# the fast/turbo kernels against their plain versions, per mode: the two
+# round the same operands to bf16, but their f32 carries may differ in the
+# last bit; then one bf16 rounding goes the other way (2^-8 relative) and
+# the two recursions drift apart at bf16 level, most in sequence mode (two
+# rounded products a site, no block normalisation). Largest readings on an
+# H100 over phase 10's windows (8.4M pair-sites at T=1024; the sums also at
+# T=8192): array alpha 7.9e-4, posterior 3.2e-4, threshold sums 1.2e-4,
+# means 3.2e-5 x the largest time, sums over pairs 1.6e-7 per pair;
+# sequence alpha 1.2e-2, posterior 1.7e-2, threshold sums 1.1e-3, means
+# 4.3e-4 x the largest time, sums 4.6e-6 per pair. Gates: per-pair outputs
+# (and alpha, columns normalised) 5e-3 array, 5e-2 sequence, times the
+# largest expected time on means, MAP states differing only where the plain
+# posterior's two states lie within it; sums over pairs about 10x their
+# readings.
+APPROX_ATOL = {"array": 5e-3, "sequence": 5e-2}
+APPROX_SUM_ATOL = {"array": 2e-6, "sequence": 5e-5}
+# the fast profile against the exact one: the profile's own error, not a
+# kernel's. Sums over pairs: 5e-3 per pair (readings 2.6e-4 on the ASMC
+# scale leg, 1.3e-3 on the 448-pair sequence-mode golden job). Posterior:
+# 0.25 over phase 10's 8.4M pair-sites a mode (readings 0.13 array, 0.16
+# sequence). Per-pair streams of the example panel's 150 within-sample
+# pairs (array mode; the plain versions on the CPU read 2.2e-2 and 0.857):
+# posterior means within relative 5e-2, MAP states equal at >= 80 % of the
+# pair-sites (the others are states of flat, near-tied posteriors).
+PROFILE_SUM_ATOL = 5e-3
+PROFILE_POST_ATOL = 0.25
+PROFILE_MEAN_RTOL = 5e-2
+PROFILE_MAP_AGREE = 0.8
 GOLDEN_RTOL = 1e-4
+F1_MIN = 0.99
 SCALE_HAPS = 16384
+# where the tables live and the kernels run
+DEVICE = "cuda"
 SUMS = ("sum_over_pairs", "sum_over_pairs00", "sum_over_pairs01",
         "sum_over_pairs11")
-ASMC_KERNELS = ("hmm_forward", "hmm_backward", "hmm_block_reduce")
 DECODE_KERNELS = ("hmm_forward", "hmm_backward")
+# the instantiations besides (array, exact), in an order where turbo follows
+# fast in each mode
+VARIANTS = (("sequence", "exact"), ("array", "fast"), ("array", "turbo"),
+            ("sequence", "fast"), ("sequence", "turbo"))
+# phase 10's windows (label, t0, T, P, outputs): the main path's with all
+# six outputs, then the ASMC scale leg's batches with the two sums
+VARIANT_SHAPES = (("main-path", 2048, 1024, 8192, "all"),
+                  ("dead-lanes", 2048, 1024, 8187, "all"),
+                  ("asmc-shape P=8192", 0, 8192, 8192, "sums"),
+                  ("asmc-shape P=3137", 0, 8192, 3137, "sums"))
+
+
+def decode_kernels(kernels, mode: str, profile: str):
+    """The forward and backward instantiations of a mode and profile."""
+    return tuple(kernels.kernel_name(k, mode == "sequence", profile)
+                 for k in ("hmm_forward", "hmm_backward"))
 
 
 def log(msg: str) -> None:
@@ -121,19 +200,19 @@ def run_leg(kernels, name: str, need, fn):
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def map_flips(got_map, want_map, post_want) -> int:
+def map_flips(got_map, want_map, post_want, tol=KERNEL_ATOL) -> int:
     """MAP disagreements with the plain version; each must be a tie within
-    KERNEL_ATOL in the plain posterior."""
+    ``tol`` in the plain posterior."""
     flip = (got_map != want_map).nonzero()
     t, p = flip[:, 0], flip[:, 1]
     gap = (post_want[t, want_map[t, p].long(), p]
            - post_want[t, got_map[t, p].long(), p]).abs()
-    if gap.numel() and float(gap.max()) > KERNEL_ATOL:
+    if gap.numel() and float(gap.max()) > tol:
         raise AssertionError(f"MAP differs beyond a tie: gap {gap.max()}")
     return int(gap.numel())
 
 
-def backward_errors(kernels, got, want, P, exp_max) -> dict:
+def backward_errors(kernels, got, want, P, exp_max, tol=KERNEL_ATOL) -> dict:
     """Per-output error of the kernel, scaled to its gate: the raw abs
     error for per-pair outputs, /P for the sums over pairs, /max(time)
     for the means; MAP must equal the first maximum of the kernel's own
@@ -151,7 +230,7 @@ def backward_errors(kernels, got, want, P, exp_max) -> dict:
                              "kernel's posterior")
     errs["per_pair_map_ties"] = map_flips(got["per_pair_map"],
                                           want["per_pair_map"],
-                                          want["posterior"])
+                                          want["posterior"], tol)
     return errs
 
 
@@ -317,6 +396,263 @@ def time_asmc_shape(dec, kernels, res, rng):
         del alpha, got, want
 
 
+def random_pairs(rng, H: int, P: int):
+    ha = rng.integers(0, H, P)
+    return ha, (ha + 1 + rng.integers(0, H - 1, P)) % H
+
+
+def window_inputs(dec, ha, hb, t0: int, T: int):
+    """The prologue of a window: (obs, em, ops_f, ops_b, mask, seq_f,
+    seq_b), the seq operands None in array mode."""
+    obs, em, ops_f, ops_b, mask = dec.prologue(ha, hb, t0, T)
+    seq_f = seq_b = None
+    if dec.sequence:
+        seq_f, seq_b = dec.seq_prologue(t0, T)
+    return obs, em, ops_f, ops_b, mask, seq_f, seq_b
+
+
+def alpha_err(a, b, chunk: int = 512) -> float:
+    """Largest difference of two alphas [T, KP, P] after each site's column
+    is divided by its sum (block normalisation leaves alpha unnormalised
+    within a block), in chunks of sites to bound the f32 copies."""
+    err = 0.0
+    for t in range(0, a.shape[0], chunk):
+        x = a[t:t + chunk].float()
+        y = b[t:t + chunk].float()
+        x = x / x.sum(dim=1, keepdim=True)
+        y = y / y.sum(dim=1, keepdim=True)
+        err = max(err, (x - y).abs().max().item())
+    return err
+
+
+def profile_error(ex_dec, kernels, inp, got, want, outs, tol,
+                  n_worst: int = 8) -> dict:
+    """The fast profile's own error on one window: its kernel (``got``)
+    against the exact kernel on the same inputs (posterior, per-pair means
+    relative to the exact ones, the share of equal MAP states), gated at
+    PROFILE_POST_ATOL on the posterior. Then the witness that the error is
+    the profile's arithmetic, not the kernel's: on the ``n_worst`` pairs
+    where the two kernels differ most, the plain fast version (``want``)
+    against the plain exact one reads the same, within the two kernels'
+    gates against their plain versions (``tol`` + KERNEL_ATOL)."""
+    obs, em, ops_f, ops_b, mask, seq_f, seq_b = inp
+    t = ex_dec.tables
+    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f)
+    ex = kernels.backward_combine(t.Mb, em, obs, alpha, ops_b, mask,
+                                  ex_dec.K, 11, outs, t.exp_times, seq_b)
+    del alpha
+    kern = (got["posterior"] - ex["posterior"]).abs().amax(dim=(0, 1))
+    worst = kern.topk(n_worst).indices
+    obs_w = obs[..., worst].contiguous()
+    alpha = kernels.forward_reference(t.Mf, em, obs_w, t.isp, ops_f, mask,
+                                      seq_f)
+    plain_ex = kernels.backward_combine_reference(
+        t.Mb, em, obs_w, alpha, ops_b, mask, ex_dec.K, 0,
+        kernels.BwdOutputs(), seq=seq_b)["posterior"]
+    plain = (want["posterior"][..., worst] - plain_ex).abs().amax(dim=(0, 1))
+    res = {"posterior": kern.max().item(),
+           "worst_pairs_kernels": kern[worst].tolist(),
+           "worst_pairs_plain_versions": plain.tolist(),
+           "per_pair_mean_rel": ((got["per_pair_mean"] - ex["per_pair_mean"])
+                                 .abs() / ex["per_pair_mean"]).max().item(),
+           "map_equal_share": (got["per_pair_map"] == ex["per_pair_map"])
+           .float().mean().item()}
+    if res["posterior"] > PROFILE_POST_ATOL \
+            or (kern[worst] - plain).abs().max().item() > tol + KERNEL_ATOL:
+        raise AssertionError(f"fast against exact: {res} (posterior gate "
+                             f"{PROFILE_POST_ATOL}, kernels against plain "
+                             f"versions within {tol + KERNEL_ATOL})")
+    return res
+
+
+def compare_variants(decs, kernels) -> dict:
+    """Phase 10: the sequence-mode and fast/turbo instantiations against
+    their plain versions at the main-path window (T=1024, P=8192 and 8187,
+    all six outputs) and at the ASMC shape (T=8192, both sums, P=8192 and
+    3137); turbo equal to fast bit for bit. Returns per-instantiation
+    {max_abs_err, ms, plain_ms, ...}."""
+    rng = np.random.default_rng(2)
+    all_outs = kernels.BwdOutputs(**{n: True for n in
+                                     kernels.KERNEL_OUTPUTS})
+    sums = kernels.BwdOutputs(posterior=False, posterior_sums=True,
+                              major_minor_sums=True)
+    res, prev = {}, {}
+    for mode, profile in VARIANTS:
+        dec = decs[mode, profile]
+        t = dec.tables
+        H = t.hap_bits.shape[0]
+        exp_max = float(t.exp_times.max())
+        tol, sum_tol = (KERNEL_ATOL, KERNEL_ATOL) if profile == "exact" \
+            else (APPROX_ATOL[mode], APPROX_SUM_ATOL[mode])
+        fname, bname = decode_kernels(kernels, mode, profile)
+        rf = res[fname] = {"max_abs_err": 0.0}
+        rb = res[bname] = {"max_abs_err": 0.0, "errors": {}}
+        for label, t0, T, P, which in VARIANT_SHAPES:
+            outs = all_outs if which == "all" else sums
+            if profile != "turbo":
+                # turbo takes fast's inputs, to compare bit for bit
+                pairs = random_pairs(rng, H, P)
+            else:
+                pairs = prev[label][0]
+            inp = window_inputs(dec, *pairs, t0, T)
+            obs, em, ops_f, ops_b, mask, seq_f, seq_b = inp
+            fwd_args = (t.Mf, em, obs, t.isp, ops_f, mask, seq_f, profile)
+            alpha = kernels.forward(*fwd_args)
+            plain_fwd, alpha_ref = once_ms(
+                lambda: kernels.forward_reference(*fwd_args))
+            a_err = alpha_err(alpha, alpha_ref)
+            del alpha_ref
+            bwd_args = (t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11, outs,
+                        t.exp_times, seq_b, profile)
+            got = kernels.backward_combine(*bwd_args)
+            plain_bwd, want = once_ms(
+                lambda: kernels.backward_combine_reference(*bwd_args))
+            if outs.posterior:
+                errs = backward_errors(kernels, got, want, P, exp_max, tol)
+            else:
+                errs = {n: (got[n] - want[n]).abs().max().item() / P
+                        for n in ("posterior_sums", "major_minor_sums")}
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in [alpha, *got.values()])
+            prof = {}
+            if profile == "fast" and outs.posterior:
+                prof = profile_error(decs[mode, "exact"], kernels, inp, got,
+                                     want, outs, tol)
+            del want
+            same = None
+            if profile == "turbo":
+                f_alpha, f_got = prev[label][1:]
+                same = torch.equal(alpha, f_alpha) and all(
+                    torch.equal(got[n], f_got[n]) for n in got)
+            log(f"[variants] {bname} {label}: t0={t0} T={T} P={P} max|diff| "
+                f"alpha (columns normalised) {a_err:.3g}, backward (sums /P,"
+                f" mean /max time) {json.dumps(errs)} finite={finite}"
+                + ("" if same is None else f" bit-equal to fast: {same}")
+                + (f"; fast against exact {json.dumps(prof)}" if prof
+                   else ""))
+            over_pairs = [errs[k] for k in ("posterior_sums",
+                                            "major_minor_sums")]
+            per_pair = [v for k, v in errs.items() if k not in (
+                "per_pair_map_ties", "posterior_sums", "major_minor_sums")]
+            if not finite or max([a_err, *per_pair]) > tol \
+                    or max(over_pairs) > sum_tol or same is False:
+                raise AssertionError(
+                    f"{bname} at {label}: alpha {a_err}, {errs} (atol {tol}, "
+                    f"sums {sum_tol} per pair), turbo equal to fast: {same}")
+            rf["max_abs_err"] = max(rf["max_abs_err"], a_err)
+            rb["max_abs_err"] = max(rb["max_abs_err"], *(
+                v for k, v in errs.items() if k != "per_pair_map_ties"))
+            rb["errors"][label] = errs
+            if prof:
+                rb.setdefault("fast_vs_exact", {})[label] = prof
+            key = "" if label == "main-path" else \
+                "asmc_shape_" if label == "asmc-shape P=8192" else None
+            if key is not None:
+                reps = 10 if which == "all" else 3
+                fb = kernels.BwdOutputs(posterior=True, threshold_sums=True) \
+                    if which == "all" else outs
+                fb_args = (*bwd_args[:8], fb, *bwd_args[9:])
+                rf[key + "ms"] = median_ms(
+                    lambda: kernels.forward(*fwd_args), reps)
+                rb[key + "ms"] = median_ms(
+                    lambda: kernels.backward_combine(*fb_args), reps)
+                if which == "all":
+                    rf["plain_ms"] = median_ms(
+                        lambda: kernels.forward_reference(*fwd_args), 3)
+                    rb["plain_ms"] = median_ms(
+                        lambda: kernels.backward_combine_reference(*fb_args),
+                        3)
+                else:
+                    rf["asmc_shape_plain_ms"] = plain_fwd
+                    rb["asmc_shape_plain_ms"] = plain_bwd
+            if profile == "fast":
+                prev[label] = (pairs, alpha, got)
+            else:
+                del alpha, got
+            if profile == "turbo":
+                del prev[label]
+        log(f"[variants] {fname}: " + json.dumps(rf))
+        log(f"[variants] {bname}: " + json.dumps(
+            {k: v for k, v in rb.items() if k != "errors"}))
+    return res
+
+
+def ptxas_registers(text: str, tag: str):
+    """(kernel name up to its parameters, "Used N registers ...") of each
+    entry function in ptxas' log whose name holds ``tag``."""
+    out, fn = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and tag in fn and "registers" in line:
+            name = fn.split("kernel", 1)[-1].split("EEv")[0]
+            out.append((name, line.split(":", 1)[1].strip()))
+    return out
+
+
+def ab_parent(parent: str, dec, kernels, this_log: str,
+              reps: int = 3) -> dict:
+    """The exact array kernels of this tree against those of the checkout
+    at ``parent``, each called through its own checkout's wrappers
+    (``kernels.forward`` / ``backward_combine``, the parent's package
+    loaded under another name), on the same inputs (T=1024, P=8192):
+    forward, backward with the FastSMC outputs (posterior + threshold sums)
+    and backward with the two ASMC sums and their reduction. Median of 10
+    calls a side, the sides in turns (parent, this; this, parent; ...),
+    ``reps`` times each. Both must give the same bits. Logs both builds'
+    ptxas registers for the exact array kernels (``this_log``: this tree's
+    build log)."""
+    import importlib
+    import types
+    pkg = types.ModuleType("parent_port")
+    pkg.__path__ = [os.path.join(parent, "fastsmc_tpu_torch")]
+    sys.modules[pkg.__name__] = pkg
+    info = importlib.import_module("parent_port.engine._build").build()
+    pk = importlib.import_module("parent_port.engine.kernels")
+    log(f"[a/b] parent library built in {info.seconds:.1f} s")
+    tag = f"_kernelILi{dec.tables.KP // 8}E"
+    for side, text in (("parent", info.log), ("this", this_log)):
+        for fn, regs in ptxas_registers(text, tag):
+            if side == "parent" or fn.endswith("Lb0ELb0E"):  # exact array
+                log(f"[a/b] {side}: {fn}: {regs}")
+    t = dec.tables
+    T, P = 1024, 8192
+    obs, em, ops_f, ops_b, mask = dec.prologue(
+        *random_pairs(np.random.default_rng(5), t.hap_bits.shape[0], P),
+        2048, T)
+    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask)
+    calls = {
+        "forward": lambda k: {"alpha": k.forward(t.Mf, em, obs, t.isp,
+                                                 ops_f, mask)},
+        "backward (posterior, threshold sums)": lambda k: k.backward_combine(
+            t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11,
+            k.BwdOutputs(posterior=True, threshold_sums=True)),
+        "backward (posterior sums, major/minor sums)":
+            lambda k: k.backward_combine(
+                t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11,
+                k.BwdOutputs(posterior=False, posterior_sums=True,
+                             major_minor_sums=True))}
+    sides = {"parent": pk, "this": kernels}
+    res = {}
+    for what, call in calls.items():
+        a, b = (call(k) for k in sides.values())
+        if a.keys() != b.keys() or not all(torch.equal(a[n], b[n])
+                                           for n in a):
+            raise AssertionError(f"a/b: {what} differs from the parent's "
+                                 "bits")
+        del a, b
+        times = {"parent": [], "this": []}
+        for r in range(reps):
+            order = ("parent", "this") if r % 2 == 0 else ("this", "parent")
+            for side in order:
+                times[side].append(median_ms(
+                    lambda: call(sides[side]), 10))
+        res[what] = times
+        log(f"[a/b] {what}, T={T} P={P}, median ms of 10 per turn, in "
+            f"turns: {json.dumps(times)}; outputs equal bit for bit")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # FastSMC legs
 # ---------------------------------------------------------------------------
@@ -348,7 +684,7 @@ def golden_leg(FastSMC, DecodingParams, kernels) -> dict:
     t0 = time.perf_counter()
     path, launches = run_leg(
         kernels, "FastSMC golden", DECODE_KERNELS,
-        lambda: FastSMC(params, device="cuda").run(verbose=False))
+        lambda: FastSMC(params, device=DEVICE).run(verbose=False))
     wall = time.perf_counter() - t0
     got = read_records(path)
     rel = compare_records(got, read_records(GOLDEN), "golden leg")
@@ -359,7 +695,7 @@ def golden_leg(FastSMC, DecodingParams, kernels) -> dict:
 
 def scale_params(DecodingParams, tag: str):
     """The scale leg's configuration: batch 8192, min_m 1.5, the
-    reference's default 13-column records (ages on), exact profile."""
+    reference's default 13-column records (ages on)."""
     return DecodingParams(
         fastsmc=True, hashing=True, batch_size=8192, in_file_root=OUT,
         out_file_root=os.path.join(OUT, tag), decoding_quant_file=DQ,
@@ -367,22 +703,26 @@ def scale_params(DecodingParams, tag: str):
         do_per_pair_posterior_mean=True, do_per_pair_map=True).finalize()
 
 
-def scale_leg(FastSMC, DecodingParams, kernels, data) -> dict:
+def scale_leg(FastSMC, DecodingParams, kernels, data, profile="exact"):
+    """Twice on ``profile``; returns (launches, the second run's records
+    file, its row)."""
     runs = []
     dq = None
+    tag = "scale" if profile == "exact" else f"scale_{profile}"
     for i in range(2):
-        f = FastSMC(scale_params(DecodingParams, f"scale{i}"), data=data,
-                    dq=dq, device="cuda")
+        f = FastSMC(scale_params(DecodingParams, f"{tag}{i}"), data=data,
+                    dq=dq, device=DEVICE, decode_profile=profile)
         dq = f.dq
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        path, launches = run_leg(kernels, "FastSMC scale", DECODE_KERNELS,
+        path, launches = run_leg(kernels, f"FastSMC scale ({profile})",
+                                 decode_kernels(kernels, "array", profile),
                                  lambda: f.run(verbose=False))
         wall = time.perf_counter() - t0
         with gzip.open(path, "rb") as fh:
             digest = hashlib.sha256(fh.read()).hexdigest()
-        row = dict(run="cold" if i == 0 else "warm", wall_s=wall,
-                   candidates=f._cpt, records=f.n_segments,
+        row = dict(profile=profile, run="cold" if i == 0 else "warm",
+                   wall_s=wall, candidates=f._cpt, records=f.n_segments,
                    candidates_per_s=f._cpt / wall,
                    decoded_site_pairs=f.stats["decoded_site_pairs"],
                    cand_site_pairs=f.stats["cand_site_pairs"],
@@ -392,12 +732,57 @@ def scale_leg(FastSMC, DecodingParams, kernels, data) -> dict:
                    sha256=digest)
         log("[scale] " + json.dumps(row))
         runs.append(row)
-        os.remove(path)
+        if i == 0:
+            os.remove(path)
     if runs[0]["sha256"] != runs[1]["sha256"] \
             or runs[0]["records"] != runs[1]["records"]:
-        raise AssertionError("scale leg: the two runs' outputs differ")
-    log("[scale] both runs wrote identical decompressed output")
-    return runs[1]["launches"]
+        raise AssertionError(f"scale leg ({profile}): the two runs' "
+                             "outputs differ")
+    log(f"[scale] {profile}: both runs wrote identical decompressed output")
+    return runs[1]["launches"], path, runs[1]
+
+
+def seq_golden_leg(FastSMC, DecodingParams, kernels) -> dict:
+    """Sequence mode on the example panel against the JAX package's
+    records (tests/fixtures/example_array.seq.FastSMC.ibd.gz)."""
+    params = DecodingParams.fastsmc_defaults(
+        EXAMPLE, DQ, os.path.join(OUT, "example_seq"), use_known_seed=True,
+        decoding_mode="sequence")
+    path, launches = run_leg(
+        kernels, "FastSMC sequence golden",
+        decode_kernels(kernels, "sequence", "exact"),
+        lambda: FastSMC(params, device=DEVICE).run(verbose=False))
+    got = read_records(path)
+    rel = compare_records(got, read_records(SEQ_GOLDEN), "seq golden leg")
+    log(f"[seq-golden] {len(got)} records, keys equal in order to the JAX "
+        f"package's, float max rel {rel:.3g}, launches {launches}")
+    return launches
+
+
+def fastsmc_profiles_leg(FastSMC, DecodingParams, kernels) -> dict:
+    """The example panel on the fast and turbo profiles: the same bytes,
+    and bp-F1 >= F1_MIN against the exact golden."""
+    from scripts.f1_vs_reference import f1_scores
+    launches, digests, path = {}, {}, None
+    for profile in ("fast", "turbo"):
+        params = DecodingParams.fastsmc_defaults(
+            EXAMPLE, DQ, os.path.join(OUT, f"example_{profile}"),
+            use_known_seed=True)
+        path, n = run_leg(
+            kernels, f"FastSMC {profile}",
+            decode_kernels(kernels, "array", profile),
+            lambda: FastSMC(params, device=DEVICE,
+                            decode_profile=profile).run(verbose=False))
+        launches.update(n)
+        with gzip.open(path, "rb") as fh:
+            digests[profile] = hashlib.sha256(fh.read()).hexdigest()
+    f1 = f1_scores(GOLDEN, path)
+    log(f"[profiles] example panel: turbo output equal to fast: "
+        f"{digests['fast'] == digests['turbo']}; against the exact golden "
+        f"{json.dumps(f1)}; launches {launches}")
+    if digests["fast"] != digests["turbo"] or f1["bp_f1"] < F1_MIN:
+        raise AssertionError(f"profiles leg: {digests} {f1}")
+    return launches
 
 
 def no_hashing_leg(FastSMC, DecodingParams, kernels, data) -> dict:
@@ -409,7 +794,7 @@ def no_hashing_leg(FastSMC, DecodingParams, kernels, data) -> dict:
             EXAMPLE, DQ, os.path.join(OUT, tag), use_known_seed=True,
             hashing=False, jobs=jobs, job_ind=1, batch_size=256)
 
-    f = FastSMC(params("nohash", 25), data=data, device="cuda")
+    f = FastSMC(params("nohash", 25), data=data, device=DEVICE)
     t0 = time.perf_counter()
     path, launches = run_leg(kernels, "no-hashing", DECODE_KERNELS,
                              lambda: f.run(verbose=False))
@@ -420,7 +805,7 @@ def no_hashing_leg(FastSMC, DecodingParams, kernels, data) -> dict:
             or len(recs) != f.n_segments:
         raise AssertionError(f"no-hashing leg: {len(recs)} records")
     got = read_records(FastSMC(params("nohash_small", 400), data=data,
-                               device="cuda").run(verbose=False))
+                               device=DEVICE).run(verbose=False))
     want = read_records(FastSMC(params("nohash_small_cpu", 400), data=data,
                                 device="cpu").run(verbose=False))
     rel = compare_records(got, want, "no-hashing leg, card vs CPU")
@@ -436,34 +821,78 @@ def no_hashing_leg(FastSMC, DecodingParams, kernels, data) -> dict:
 # ASMC legs
 # ---------------------------------------------------------------------------
 
-def asmc_golden_leg(ASMC, DecodingParams, kernels, data) -> dict:
+def asmc_golden_leg(ASMC, DecodingParams, kernels, data,
+                    mode: str = "array") -> dict:
+    golden = ASMC_GOLDEN if mode == "array" else SEQ_ASMC_GOLDEN
     params = DecodingParams.asmc(
-        EXAMPLE, DQ, os.path.join(OUT, "asmc_golden"), use_known_seed=True,
-        do_posterior_sums=True, do_major_minor_posterior_sums=True,
-        jobs=100, job_ind=7)
-    a = ASMC(params, data=data, device="cuda", batch_size=64)
+        EXAMPLE, DQ, os.path.join(OUT, f"asmc_golden_{mode}"),
+        use_known_seed=True, do_posterior_sums=True,
+        do_major_minor_posterior_sums=True, jobs=100, job_ind=7,
+        decoding_mode=mode)
+    a = ASMC(params, data=data, device=DEVICE, batch_size=64)
     start, end = a._job_pair_range()
-    res, launches = run_leg(kernels, "ASMC golden", ASMC_KERNELS,
-                            lambda: a.decode_all_in_job(verbose=False))
-    want = np.load(ASMC_GOLDEN)
+    res, launches = run_leg(
+        kernels, f"ASMC golden ({mode})",
+        (*decode_kernels(kernels, mode, "exact"), "hmm_block_reduce"),
+        lambda: a.decode_all_in_job(verbose=False))
+    want = np.load(golden)
     errs = {f: float(np.abs(getattr(res, f) - want[f]).max()) for f in SUMS}
-    log(f"[asmc-golden] pairs {start}..{end - 1}: max|diff| vs the JAX "
-        f"golden {json.dumps(errs)} (gate {KERNEL_ATOL * (end - start):g}),"
-        f" launches {launches}")
+    log(f"[asmc-golden] {mode} mode, pairs {start}..{end - 1}: max|diff| vs "
+        f"the JAX golden {json.dumps(errs)} (gate "
+        f"{KERNEL_ATOL * (end - start):g}), launches {launches}")
     if max(errs.values()) > KERNEL_ATOL * (end - start):
-        raise AssertionError(f"ASMC golden leg: {errs}")
+        raise AssertionError(f"ASMC golden leg ({mode}): {errs}")
     return launches
 
 
-def asmc_per_pair_leg(ASMC, DecodingParams, kernels, data) -> dict:
-    """The 150 within-sample pairs, batch 64: streamed means and MAP states
-    against the decode_pairs API for three pairs."""
-    root = os.path.join(OUT, "asmc_pp")
+def asmc_profiles_leg(ASMC, DecodingParams, kernels, data) -> dict:
+    """Sequence mode on the fast and turbo profiles, the golden's job:
+    turbo's sums equal fast's bit for bit, and fast's are within
+    PROFILE_SUM_ATOL per pair of the exact golden."""
+    want = np.load(SEQ_ASMC_GOLDEN)
+    launches, sums = {}, {}
+    for profile in ("fast", "turbo"):
+        params = DecodingParams.asmc(
+            EXAMPLE, DQ, os.path.join(OUT, f"asmc_seq_{profile}"),
+            use_known_seed=True, do_posterior_sums=True,
+            do_major_minor_posterior_sums=True, jobs=100, job_ind=7,
+            decoding_mode="sequence")
+        a = ASMC(params, data=data, device=DEVICE, batch_size=64,
+                 decode_profile=profile)
+        start, end = a._job_pair_range()
+        res, n = run_leg(
+            kernels, f"ASMC sequence {profile}",
+            (*decode_kernels(kernels, "sequence", profile),
+             "hmm_block_reduce"),
+            lambda: a.decode_all_in_job(verbose=False))
+        launches.update(n)
+        sums[profile] = [getattr(res, f) for f in SUMS]
+    same = all(np.array_equal(x, y) for x, y in zip(*sums.values()))
+    errs = {f: float(np.abs(x - want[f]).max()) / (end - start)
+            for f, x in zip(SUMS, sums["fast"])}
+    log(f"[asmc-profiles] sequence mode, pairs {start}..{end - 1}: turbo "
+        f"equal to fast: {same}; fast vs the exact golden, max|diff| per "
+        f"pair {json.dumps(errs)} (gate {PROFILE_SUM_ATOL}); launches "
+        f"{launches}")
+    if not same or max(errs.values()) > PROFILE_SUM_ATOL:
+        raise AssertionError(f"ASMC profiles leg: {same} {errs}")
+    return launches
+
+
+def asmc_per_pair_leg(ASMC, DecodingParams, kernels, data,
+                      profile: str = "exact"):
+    """The 150 within-sample pairs, batch 64, on ``profile``: streamed
+    means and MAP states against the decode_pairs API for three pairs.
+    Returns (launches, (means, MAP states))."""
+    root = os.path.join(OUT, "asmc_pp" + ("" if profile == "exact" else
+                                          f"_{profile}"))
     params = DecodingParams.asmc(
         EXAMPLE, DQ, root, use_known_seed=True, within_only=True,
         do_per_pair_posterior_mean=True, do_per_pair_map=True)
-    a = ASMC(params, data=data, device="cuda", batch_size=64)
-    _, launches = run_leg(kernels, "ASMC per-pair", DECODE_KERNELS,
+    a = ASMC(params, data=data, device=DEVICE, batch_size=64,
+             decode_profile=profile)
+    _, launches = run_leg(kernels, f"ASMC per-pair ({profile})",
+                          decode_kernels(kernels, "array", profile),
                           lambda: a.decode_all_in_job(verbose=False))
     means = np.loadtxt(root + ".perPairPosteriorMeans.gz", dtype=np.float32)
     maps = np.loadtxt(root + ".perPairMAP.gz", dtype=np.int64)
@@ -474,32 +903,61 @@ def asmc_per_pair_leg(ASMC, DecodingParams, kernels, data) -> dict:
     rel = float(np.abs(api.per_pair_posterior_means - means[pick]).max()
                 / np.abs(means[pick]).max())
     map_equal = bool((api.per_pair_maps == maps[pick]).all())
-    log(f"[asmc-per-pair] 150 pairs; pairs {pick.tolist()} vs decode_pairs:"
-        f" means max rel {rel:.3g}, MAP equal {map_equal}, launches "
-        f"{launches}")
+    log(f"[asmc-per-pair] {profile}, 150 pairs; pairs {pick.tolist()} vs "
+        f"decode_pairs: means max rel {rel:.3g}, MAP equal {map_equal}, "
+        f"launches {launches}")
     if rel > KERNEL_ATOL or not map_equal:
         raise AssertionError("per-pair streams disagree with decode_pairs")
-    return launches
+    return launches, (means, maps)
 
 
-def asmc_scale_leg(ASMC, DecodingParams, kernels, data) -> dict:
-    """jobs=1000, job 1 of the scale panel's 2N^2 - N pairs, batch 8192,
-    posterior sums and major/minor sums, twice."""
+def per_pair_profile_check(fast, exact) -> None:
+    """The fast profile's per-pair streams against the exact profile's:
+    means within relative PROFILE_MEAN_RTOL, MAP states equal at a share
+    of at least PROFILE_MAP_AGREE of the pair-sites."""
+    rel = float((np.abs(fast[0] - exact[0]) / np.abs(exact[0])).max())
+    agree = float((fast[1] == exact[1]).mean())
+    log(f"[asmc-per-pair] fast against exact: means max rel {rel:.4g} (gate "
+        f"{PROFILE_MEAN_RTOL}), MAP states equal at {agree:.4f} of the "
+        f"pair-sites (gate >= {PROFILE_MAP_AGREE})")
+    if rel > PROFILE_MEAN_RTOL or agree < PROFILE_MAP_AGREE:
+        raise AssertionError(f"ASMC fast per-pair streams: rel {rel}, MAP "
+                             f"agreement {agree}")
+
+
+def asmc_scale_leg(ASMC, DecodingParams, kernels, data, mode="array",
+                   profile="exact", batch_size=8192):
+    """jobs=1000, job 1 of the scale panel's 2N^2 - N pairs, posterior sums
+    and major/minor sums, twice, in batches of ``batch_size`` pairs (None:
+    the cap ASMC sets from the card's free memory, taken by the first run
+    and kept for the second); returns (launches, the sums, the second run's
+    row)."""
     runs, digests, sums = [], [], []
     dq = None
+    tag = "" if (mode, profile) == ("array", "exact") else \
+        f"_{mode}_{profile}"
     for i in range(2):
-        root = os.path.join(OUT, f"asmc_scale{i}")
+        root = os.path.join(OUT, f"asmc_scale{tag}{i}")
         params = DecodingParams.asmc(
             OUT, DQ, root, use_known_seed=True, do_posterior_sums=True,
-            do_major_minor_posterior_sums=True, jobs=1000, job_ind=1)
-        a = ASMC(params, data=data, dq=dq, device="cuda", batch_size=8192)
+            do_major_minor_posterior_sums=True, jobs=1000, job_ind=1,
+            decoding_mode=mode)
+        torch.cuda.empty_cache()
+        a = ASMC(params, data=data, dq=dq, device=DEVICE,
+                 batch_size=batch_size or 1 << 30, decode_profile=profile)
+        if a.batch_size != (batch_size or a.batch_size):
+            raise AssertionError(f"ASMC scale leg: batch {a.batch_size}, "
+                                 f"not the first run's {batch_size}")
+        batch_size = a.batch_size
         dq = a.dq
         start, end = a._job_pair_range()
         n = end - start
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res, launches = run_leg(kernels, "ASMC scale", ASMC_KERNELS,
-                                lambda: a.decode_all_in_job(verbose=False))
+        res, launches = run_leg(
+            kernels, f"ASMC scale ({mode}, {profile})",
+            (*decode_kernels(kernels, mode, profile), "hmm_block_reduce"),
+            lambda: a.decode_all_in_job(verbose=False))
         wall = time.perf_counter() - t0
         a.write_outputs(res)
         with gzip.open(root + ".sumOverPairs.gz", "rb") as fh:
@@ -509,26 +967,74 @@ def asmc_scale_leg(ASMC, DecodingParams, kernels, data) -> dict:
         row_rel = float(np.abs(total.sum(1) / n - 1.0).max())
         mm_err = float(np.abs(res.sum_over_pairs00 + res.sum_over_pairs01
                               + res.sum_over_pairs11 - total).max())
-        row = dict(run="cold" if i == 0 else "warm", pairs=n,
+        row = dict(mode=mode, profile=profile,
+                   run="cold" if i == 0 else "warm", pairs=n,
+                   batch_size=a.batch_size,
                    batches=-(-n // a.batch_size), wall_s=wall,
                    pairs_per_s=n / wall,
                    site_pairs_per_s=n * data.sites / wall,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    row_sum_max_rel=row_rel, classes_vs_total_max_abs=mm_err,
                    launches=launches, sha256=digests[-1])
+        del a, res                    # free the card for the next run's cap
         log("[asmc-scale] " + json.dumps(row))
         if row_rel > 1e-3 or mm_err > KERNEL_ATOL * n:
             raise AssertionError(f"ASMC scale leg: sums off: {row}")
         runs.append(row)
     if digests[0] != digests[1] or not all(
             np.array_equal(x, y) for x, y in zip(*sums)):
-        raise AssertionError("ASMC scale leg: the two runs' sums differ")
-    log("[asmc-scale] both runs wrote byte-identical sumOverPairs, and the "
-        "four sum matrices are equal bit for bit")
-    return runs[1]["launches"]
+        raise AssertionError(f"ASMC scale leg ({mode}, {profile}): the two "
+                             "runs' sums differ")
+    log(f"[asmc-scale] {mode}, {profile}: both runs wrote byte-identical "
+        "sumOverPairs, and the four sum matrices are equal bit for bit")
+    return runs[1]["launches"], sums[1], runs[1]
+
+
+def build_log(info, KP: int, K: int) -> None:
+    """ptxas' registers and spills of the instantiations this model runs."""
+    tag, fn = f"_kernelILi{KP // 8}E", None
+    for line in info.log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line
+        elif fn and (tag in fn or "reduce" in fn) \
+                and ("registers" in line or "spill" in line):
+            kind = next(k for k in ("forward", "backward", "reduce")
+                        if k in fn)
+            flags = [f == "1" for f in re.findall(
+                r"Lb([01])E", fn.split(tag, 1)[-1].split("EEv")[0])]
+            if kind == "backward":
+                full, *flags = flags
+                outs = "all outputs" if full else \
+                    "posterior, threshold sums"
+            if kind != "reduce":
+                seq, approx = flags
+                kind += (f" ({'sequence' if seq else 'array'}, "
+                         f"{'bf16' if approx else 'exact'}"
+                         + (f", {outs}" if kind == "backward" else "") + ")")
+            log(f"[build] {kind} kernel, K={K}: {line.strip()}")
+
+
+def variant_decoders(DecodingParams, kernels, data) -> dict:
+    """GpuDecoder per (mode, profile) on one panel's tables."""
+    from fastsmc_tpu.engine.oracle import DecodeContext
+    from fastsmc_tpu.io.decoding_quantities import DecodingQuantities
+    dq = DecodingQuantities.load(DQ)
+    decs = {}
+    for mode in ("array", "sequence"):
+        params = scale_params(DecodingParams, "kernels")
+        params.decoding_mode = mode
+        ctx = DecodeContext.build(params.finalize(), data, dq)
+        for profile in kernels.PROFILES:
+            decs[mode, profile] = kernels.GpuDecoder(ctx, DEVICE, profile)
+    return decs
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ab-parent", metavar="DIR",
+                    help="A/B the exact array kernels against the sources "
+                    "of the checkout at DIR")
+    args = ap.parse_args()
     # 1. the card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -541,32 +1047,27 @@ def main() -> int:
     from fastsmc_tpu_torch.engine import _build, kernels
     from fastsmc_tpu.io.haps import load_data
     from scripts.biobank_probe import make_panel
+    from scripts.f1_vs_reference import f1_scores
 
     # 2. build
     info = _build.build()
     log(f"[build] {info.path.name} in {info.seconds:.1f} s")
 
     # 3. kernels vs plain versions, on the tables of a 4,096-hap panel
-    dec = FastSMC(scale_params(DecodingParams, "kernels"),
-                  data=make_panel(4096, seed=1), device="cuda").decoder
-    # ptxas' registers and spills of the instantiation this model runs
-    tag, fn = f"_kernelILi{dec.tables.KP // 8}E", None
-    for line in info.log.splitlines():
-        if "Compiling entry function" in line:
-            fn = line
-        elif fn and (tag in fn or "reduce" in fn) \
-                and ("registers" in line or "spill" in line):
-            kind = next(k for k in ("forward", "backward", "reduce")
-                        if k in fn)
-            if "Lb1E" in fn or "Lb0E" in fn:
-                kind += (" (all outputs)" if "Lb1E" in fn else
-                         " (posterior, threshold sums)")
-            log(f"[build] {kind} kernel, K={dec.K}: {line.strip()}")
+    decs = variant_decoders(DecodingParams, kernels,
+                            make_panel(4096, seed=1))
+    dec = decs["array", "exact"]
+    build_log(info, dec.tables.KP, dec.K)
     kres = compare_kernels(dec, kernels)
-    del dec
+    if args.ab_parent:
+        ab_parent(args.ab_parent, dec, kernels, info.log)
+    torch.cuda.empty_cache()
+    # 10. the sequence-mode and fast/turbo instantiations
+    kres.update(compare_variants(decs, kernels))
+    del dec, decs
     torch.cuda.empty_cache()
 
-    # 4.-9. the legs; launches summed over every leg's own run
+    # 4.-9., 11., 12. the legs; launches summed over every leg's own run
     launches: dict = {}
 
     def add(counts):
@@ -580,25 +1081,67 @@ def main() -> int:
     example = load_data(DecodingParams.asmc(EXAMPLE, DQ, OUT, fastsmc=True,
                                             use_known_seed=True))
     add(golden_leg(FastSMC, DecodingParams, kernels))
-    add(scale_leg(FastSMC, DecodingParams, kernels, scale_data))
+    n, exact_records, _ = scale_leg(FastSMC, DecodingParams, kernels,
+                                    scale_data)
+    add(n)
     add(asmc_golden_leg(ASMC, DecodingParams, kernels, example))
-    add(asmc_per_pair_leg(ASMC, DecodingParams, kernels, example))
-    add(asmc_scale_leg(ASMC, DecodingParams, kernels, scale_data))
+    n, exact_streams = asmc_per_pair_leg(ASMC, DecodingParams, kernels,
+                                         example)
+    add(n)
+    n, exact_sums, _ = asmc_scale_leg(ASMC, DecodingParams, kernels,
+                                      scale_data)
+    add(n)
     add(no_hashing_leg(FastSMC, DecodingParams, kernels, example))
+    # 11. sequence mode
+    add(asmc_golden_leg(ASMC, DecodingParams, kernels, example, "sequence"))
+    add(seq_golden_leg(FastSMC, DecodingParams, kernels))
+    add(asmc_scale_leg(ASMC, DecodingParams, kernels, scale_data,
+                       mode="sequence")[0])
+    # 12. the fast/turbo profiles; the fast ASMC leg takes the batch cap its
+    # bf16 alpha allows
+    n, fast_sums, row = asmc_scale_leg(ASMC, DecodingParams, kernels,
+                                       scale_data, profile="fast",
+                                       batch_size=None)
+    add(n)
+    errs = {f: float(np.abs(x - y).max()) / row["pairs"]
+            for f, x, y in zip(SUMS, fast_sums, exact_sums)}
+    log(f"[asmc-scale] fast against exact, max|diff| per pair "
+        f"{json.dumps(errs)} (gate {PROFILE_SUM_ATOL})")
+    if max(errs.values()) > PROFILE_SUM_ATOL:
+        raise AssertionError(f"ASMC fast scale leg: {errs}")
+    n, fast_streams = asmc_per_pair_leg(ASMC, DecodingParams, kernels,
+                                        example, "fast")
+    add(n)
+    per_pair_profile_check(fast_streams, exact_streams)
+    n, fast_records, _ = scale_leg(FastSMC, DecodingParams, kernels,
+                                   scale_data, profile="fast")
+    add(n)
+    t0 = time.perf_counter()
+    f1 = f1_scores(exact_records, fast_records)
+    log(f"[scale] fast against exact records: {json.dumps(f1)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if f1["bp_f1"] < F1_MIN:
+        raise AssertionError(f"FastSMC fast scale leg: bp-F1 {f1}")
+    add(asmc_profiles_leg(ASMC, DecodingParams, kernels, example))
+    add(fastsmc_profiles_leg(FastSMC, DecodingParams, kernels))
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     rows = []
-    for name, src, line in (
-            ("hmm_forward", "hmm_forward.cu", "96"),
-            ("hmm_backward", "hmm_backward.cu", "185"),
-            # the over-pairs sums in _make_bwd_kernel's body
-            ("hmm_block_reduce", "hmm_reduce.cu", "267")):
+    for name, res in kres.items():
+        kernel = name.split("_")[1]      # forward, backward, block
+        src, line = {"forward": ("hmm_forward.cu", "96"),
+                     "backward": ("hmm_backward.cu", "185"),
+                     # the over-pairs sums in _make_bwd_kernel's body
+                     "block": ("hmm_reduce.cu", "267")}[kernel]
         rows.append(dict(
             name=name, route="cuda",
             source=f"fastsmc_tpu_torch/csrc/{src}",
             replaces=f"fastsmc_tpu/engine/kernels.py:{line}",
-            launches=launches.get(name, 0), **kres[name]))
+            launches=launches.get(name, 0), **res))
+    idle = [r["name"] for r in rows if r["launches"] < 1]
+    if idle:
+        raise AssertionError(f"no leg launched {idle}")
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

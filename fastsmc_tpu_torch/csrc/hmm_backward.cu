@@ -1,11 +1,14 @@
-// Backward recursion + posterior combine of the batched pair HMM
-// (array mode, exact profile).
+// Backward recursion + posterior combine of the batched pair HMM: array and
+// sequence mode, on the exact, fast and turbo profiles.
 //
-// Replaces the Pallas TPU kernel `_make_bwd_kernel`, array branch
+// Replaces the Pallas TPU kernel `_make_bwd_kernel`
 // (fastsmc_tpu/engine/kernels.py:185-293, launched at :681), with all six
 // of its outputs, each selected per launch by a non-null pointer:
 //   beta_{T-1} = 1/K on real states, 0 on padded ones;
-//   beta_pos   = norm_mask(Mb[ops[pos]] @ (beta_{pos+1} * em_{pos+1}));
+//   array:    beta_pos = norm_mask(Mb[ops[pos]] @ (beta_{pos+1} * em_{pos+1}));
+//   sequence: mid      = Mb[ops[pos]] @ (beta_{pos+1} * hem_pos),
+//             beta_pos = norm_mask(Mb[rops[pos]] @ (mid * em_{pos+1}))
+//             (kernels.py:227-230: homozygous half-step, then marker step);
 //   post_pos   = alpha_pos * beta_pos / sum_k(alpha_pos * beta_pos);
 // per pair p:
 //   posterior[pos][k][p]   = post,
@@ -19,11 +22,16 @@
 //   w00 = oz * (1 - oh), w01 = 1 - oz, w11 = oh.
 // As in kernels.py:597-603, ops and the emission/observation rows are taken
 // at pos+1 for the step that produces beta_pos, and mask[pos] says whether
-// site t0+pos is a scaling site.
+// site t0+pos is a scaling site. On the approximate profiles
+// (hmm_common.cuh) the product operands are rounded to bf16, alpha is read
+// as bf16, and in array mode beta is normalised only at the last site of
+// each kBlockSites-site block counted from the window's end
+// (kernels.py:233-243); the combine renormalises every site.
 //
 // Bound on an H100: the same FP32 operator product as the forward pass
 // (~5.2k FMA per pair and site) plus reading alpha and writing the
-// posterior (~600 bytes per pair and site), still compute-bound. Design:
+// posterior (~600 bytes per pair and site), still compute-bound; sequence
+// mode does two products per site. Design:
 // the forward kernel's tile (one block per 32 pairs, the window as a loop
 // inside the block), walking pos = T-1 .. 0. beta stays in registers; the
 // product's operand beta_{pos+1} * em_{pos+1} is the only thing written to
@@ -33,7 +41,9 @@
 // block holds 32, so each warp sums its lanes with a fixed shuffle tree and
 // writes one partial per block, and a second kernel adds the blocks in a
 // fixed order: no float atomics, and two runs give the same bits. Lanes
-// past P hold 0/0 = NaN posteriors; they are masked out of every sum.
+// past P hold 0/0 = NaN posteriors; they are masked out of every sum. In
+// sequence mode the half-step's result passes through shared memory as
+// the second product's operand, after one barrier more per site.
 #include <math.h>
 
 #include "hmm_common.cuh"
@@ -63,19 +73,23 @@ constexpr int kRedBuffersFull = 6;
 // outputs when it is traced. The FastSMC path asks for posterior and
 // threshold sums only, so its instantiation carries none of their
 // registers, buffers or epilogues.
-template <int RPW, bool FULL>
+template <int RPW, bool FULL, bool SEQ, bool APPROX>
 __global__ void __launch_bounds__(kThreads)
     hmm_backward_kernel(const float* __restrict__ Mb, int G,
                         const float* __restrict__ em,     // [T][3][KP]
                         const float* __restrict__ obs,    // [T][2][P]
-                        const float* __restrict__ alpha,  // [T][KP][P]
+                        const AlphaT<APPROX>* __restrict__ alpha,  // [T][KP][P]
                         const int* __restrict__ ops,      // [T]
                         const int* __restrict__ mask,     // [T]
                         const float* __restrict__ exp_times,  // [KP] or null
                         float* __restrict__ post,  // [T][KP][P] or null
                         float* __restrict__ th,    // [T][P] or null
-                        AsmcOut out, int T, int P, int K, int state_threshold) {
+                        AsmcOut out, int T, int P, int K, int state_threshold,
+                        const int* __restrict__ rops,   // [T], SEQ only
+                        const float* __restrict__ hem,  // [T][KP], SEQ only
+                        bool op_bf16) {                 // Mb is bf16 (turbo)
   constexpr int KP = RPW * kWarps;
+  constexpr bool kNormBlock = APPROX && !SEQ;  // kernels.py:396-398
   extern __shared__ float4 smem4[];
   float* sM = reinterpret_cast<float*>(smem4);  // [KP][KP] operator of gap pos
   float* sV = sM + KP * KP;                     // [KP][kPairs] beta*em at pos+1
@@ -85,6 +99,9 @@ __global__ void __launch_bounds__(kThreads)
   float* sMean = sTh + kWarps * kPairs;         // FULL only: means, MAP
   float* sMapV = sMean + kWarps * kPairs;
   int* sMapK = reinterpret_cast<int*>(sMapV + kWarps * kPairs);
+  // SEQ: the rate operator and the half-step, after the reduction buffers
+  float* sM2 = sRed0 + (FULL ? kRedBuffersFull : kRedBuffers) * kWarps * kPairs;
+  float* sMid = sM2 + KP * KP;
   const int lane = threadIdx.x % kPairs;
   const int warp = threadIdx.x / kPairs;
   const int p = blockIdx.x * kPairs + lane;
@@ -107,27 +124,53 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int pos = T - 1; pos >= 0; --pos) {
     if (pos < T - 1) {
-      stage_operator(sM, Mb, ops[pos], G, KP);
-      __syncthreads();  // operator and operand visible
+      stage<APPROX>(sM, Mb, op_bf16, ops[pos], G, KP);
+      if constexpr (SEQ) stage<APPROX>(sM2, Mb, op_bf16, rops[pos], G, KP);
+      __syncthreads();  // operators and operand visible
       float acc[RPW];
       matvec<RPW>(acc, sM, sV, lane, warp);
-      float part = 0.f;
+      if constexpr (SEQ) {
+        // marker step's operand: the half-step times em_{pos+1}
+        const float* em_n = em + static_cast<size_t>(pos + 1) * 3 * KP;
+        const size_t o = 2 * static_cast<size_t>(pos + 1) * Pz + p;
+        const float oz = live ? obs[o] : 1.f;
+        const float oh = live ? obs[o + Pz] : 0.f;
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) part += acc[i];
-      const float s = column_sum(sRed0, part, lane, warp);
-      const float inv = mask[pos] != 0 ? 1.f / s : 1.f;  // kernels.py:242
+        for (int i = 0; i < RPW; ++i) {
+          const int k = warp + kWarps * i;
+          sMid[k * kPairs + lane] =
+              operand<APPROX>(acc[i] * emission(em_n, k, KP, oz, oh));
+        }
+        __syncthreads();  // half-step visible; last step's sMid reads done
+        matvec<RPW>(acc, sM2, sMid, lane, warp);
+      }
+      float inv = 1.f;
+      if constexpr (kNormBlock) {
+        if ((T - 1 - pos) % kBlockSites == kBlockSites - 1) {
+          float part = 0.f;
+#pragma unroll
+          for (int i = 0; i < RPW; ++i) part += acc[i];
+          inv = 1.f / column_sum(sRed0, part, lane, warp);  // kernels.py:240
+        }
+      } else {
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) part += acc[i];
+        const float s = column_sum(sRed0, part, lane, warp);
+        inv = mask[pos] != 0 ? 1.f / s : 1.f;  // kernels.py:242
+      }
 #pragma unroll
       for (int i = 0; i < RPW; ++i) b[i] = acc[i] * inv;
     }
 
     // combine (kernels.py:262-291)
-    const float* alpha_t = alpha + static_cast<size_t>(pos) * KP * Pz;
+    const AlphaT<APPROX>* alpha_t = alpha + static_cast<size_t>(pos) * KP * Pz;
     float q[RPW];
     float part = 0.f;
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int k = warp + kWarps * i;
-      q[i] = live ? alpha_t[k * Pz + p] * b[i] : 0.f;
+      q[i] = live ? alpha_to_float(alpha_t[k * Pz + p]) * b[i] : 0.f;
       part += q[i];
     }
     const float s = column_sum(sRed1, part, lane, warp);
@@ -214,53 +257,72 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // operand of the next (earlier) site's product: beta_pos * em_pos
+    // operand of the next (earlier) site's first product: beta_pos * em_pos,
+    // or in sequence mode beta_pos * hem_{pos-1}
     if (pos > 0) {
-      const float* em_t = em + static_cast<size_t>(pos) * 3 * KP;
+      if constexpr (SEQ) {
+        const float* hem_n = hem + static_cast<size_t>(pos - 1) * KP;
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const int k = warp + kWarps * i;
-        sV[k * kPairs + lane] = b[i] * emission(em_t, k, KP, oz, oh);
+        for (int i = 0; i < RPW; ++i) {
+          const int k = warp + kWarps * i;
+          sV[k * kPairs + lane] = operand<APPROX>(b[i] * hem_n[k]);
+        }
+      } else {
+        const float* em_t = em + static_cast<size_t>(pos) * 3 * KP;
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) {
+          const int k = warp + kWarps * i;
+          sV[k * kPairs + lane] =
+              operand<APPROX>(b[i] * emission(em_t, k, KP, oz, oh));
+        }
       }
     }
   }
 }
 
-template <int RPW, bool FULL>
-int launch_backward_as(const float* Mb, int G, const float* em,
-                       const float* obs, const float* alpha, const int* ops,
-                       const int* mask, const float* exp_times, float* post,
-                       float* th, AsmcOut out, int T, int P, int K,
-                       int state_threshold, cudaStream_t stream) {
+struct BackwardArgs {
+  const float* Mb;
+  int G;
+  const float* em;
+  const float* obs;
+  const void* alpha;
+  const int* ops;
+  const int* rops;
+  const float* hem;
+  const int* mask;
+  const float* exp_times;
+  float* post;
+  float* th;
+  AsmcOut out;
+  int T, P, K, state_threshold;
+  bool op_bf16;
+};
+
+template <int RPW, bool FULL, bool SEQ, bool APPROX>
+int launch_backward(const BackwardArgs& a, cudaStream_t stream) {
+  constexpr int KP = RPW * kWarps;
   const size_t smem =
-      shared_bytes(RPW * kWarps, FULL ? kRedBuffersFull : kRedBuffers);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        hmm_backward_kernel<RPW, FULL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((P + kPairs - 1) / kPairs);
-  hmm_backward_kernel<RPW, FULL><<<grid, kThreads, smem, stream>>>(
-      Mb, G, em, obs, alpha, ops, mask, exp_times, post, th, out, T, P, K,
-      state_threshold);
+      shared_bytes(KP, FULL ? kRedBuffersFull : kRedBuffers) +
+      (SEQ ? sizeof(float) * (KP * KP + KP * kPairs) : 0);
+  auto* kernel = hmm_backward_kernel<RPW, FULL, SEQ, APPROX>;
+  const int rc = allow_shared(kernel, smem);
+  if (rc != 0) return rc;
+  const dim3 grid((a.P + kPairs - 1) / kPairs);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      a.Mb, a.G, a.em, a.obs, static_cast<const AlphaT<APPROX>*>(a.alpha),
+      a.ops, a.mask, a.exp_times, a.post, a.th, a.out, a.T, a.P, a.K,
+      a.state_threshold, a.rops, a.hem, a.op_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int RPW>
-int launch_backward(const float* Mb, int G, const float* em, const float* obs,
-                    const float* alpha, const int* ops, const int* mask,
-                    const float* exp_times, float* post, float* th,
-                    AsmcOut out, int T, int P, int K, int state_threshold,
-                    cudaStream_t stream) {
-  const bool full = out.mean || out.map || out.psum || out.mm;
-  return full ? launch_backward_as<RPW, true>(Mb, G, em, obs, alpha, ops,
-                                              mask, exp_times, post, th, out,
-                                              T, P, K, state_threshold, stream)
-              : launch_backward_as<RPW, false>(Mb, G, em, obs, alpha, ops,
-                                               mask, exp_times, post, th, out,
-                                               T, P, K, state_threshold,
-                                               stream);
+template <bool SEQ, bool APPROX>
+int backward_variant(const BackwardArgs& a, int rpw, cudaStream_t stream) {
+  const bool full = a.out.mean || a.out.map || a.out.psum || a.out.mm;
+  return dispatch_rpw(rpw, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return full ? launch_backward<R, true, SEQ, APPROX>(a, stream)
+                : launch_backward<R, false, SEQ, APPROX>(a, stream);
+  });
 }
 
 }  // namespace
@@ -270,24 +332,36 @@ int launch_backward(const float* Mb, int G, const float* em, const float* obs,
 // output pointer may be null (output not wanted); `psum` and `mm` receive
 // per-block partials over ceil(P / 32) blocks, summed by
 // fastsmc_block_reduce. `exp_times` ([KP]) is read only for `mean`.
-// Returns the cudaError_t of the launch. KP must be a multiple of 8, at
-// most 128, with K <= KP.
-extern "C" int fastsmc_hmm_backward(const float* Mb, int G, const float* em,
-                                    const float* obs, const float* alpha,
-                                    const int* ops, const int* mask,
-                                    const float* exp_times, float* post,
-                                    float* th, float* mean, float* map,
-                                    float* psum, float* mm, int T, int P,
-                                    int K, int KP, int state_threshold,
+// `profile` is kExact, kFast or kTurbo (Mb f32, f32, bf16; alpha f32, bf16,
+// bf16). Sequence mode when `rops` and `hem` are given, array mode when
+// both are null. Returns the cudaError_t of the launch. KP must be a
+// multiple of 8, at most 128, with K <= KP.
+extern "C" int fastsmc_hmm_backward(const void* Mb, int profile, int G,
+                                    const float* em, const float* obs,
+                                    const void* alpha, const int* ops,
+                                    const int* rops, const float* hem,
+                                    const int* mask, const float* exp_times,
+                                    float* post, float* th, float* mean,
+                                    float* map, float* psum, float* mm, int T,
+                                    int P, int K, int KP, int state_threshold,
                                     int device, void* stream) {
   using namespace fastsmc;
   if (T <= 0 || P <= 0 || G <= 0 || K <= 0 || K > KP || KP % kWarps != 0 ||
-      (mean && !exp_times))
+      (mean && !exp_times) || profile < kExact || profile > kTurbo ||
+      (rops == nullptr) != (hem == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const AsmcOut out{mean, map, psum, mm};
-  FASTSMC_DISPATCH_RPW(KP / kWarps, launch_backward, Mb, G, em, obs, alpha,
-                       ops, mask, exp_times, post, th, out, T, P, K,
-                       state_threshold, static_cast<cudaStream_t>(stream))
+  const BackwardArgs a{static_cast<const float*>(Mb), G, em, obs, alpha, ops,
+                       rops, hem, mask, exp_times, post, th,
+                       AsmcOut{mean, map, psum, mm}, T, P, K,
+                       state_threshold, profile == kTurbo};
+  const int rpw = KP / kWarps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool seq = rops != nullptr;
+  if (profile == kExact)
+    return seq ? backward_variant<true, false>(a, rpw, s)
+               : backward_variant<false, false>(a, rpw, s);
+  return seq ? backward_variant<true, true>(a, rpw, s)
+             : backward_variant<false, true>(a, rpw, s);
 }

@@ -7,17 +7,66 @@
 // inside the block: blocks carry nothing between them.
 //
 // All arithmetic is float32 with fmaf in the operator products; there is no
-// fast-math, no __fdividef and no TF32 anywhere on this path.
+// fast-math, no __fdividef and no TF32 anywhere on this path. On the
+// approximate profiles (fast, turbo) both operands of every product are
+// rounded to bf16 (nearest even) before the f32 fmaf, which is the TPU's
+// single-pass matrix unit (fastsmc_tpu/engine/kernels.py:59-73): a product
+// of two bf16 values is exact in f32, so only the order of the f32 sums
+// differs from the TPU's.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace fastsmc {
 
 constexpr int kWarps = 8;
 constexpr int kPairs = 32;
 constexpr int kThreads = kWarps * kPairs;
+
+// Profile codes of the C interface (kernels.py _PROFILE_CODE).
+constexpr int kExact = 0;
+constexpr int kFast = 1;   // f32 operators, rounded to bf16 as they are staged
+constexpr int kTurbo = 2;  // bf16 operators
+// Sites per normalisation block on the approximate profiles in array mode
+// (kernels.py BLOCK_SITES): the carry is normalised only at the last site
+// of each block (and at the forward pass's site 0).
+constexpr int kBlockSites = 8;
+
+// The stored forward messages: f32 on the exact profile, bf16 otherwise.
+template <bool APPROX>
+using AlphaT = std::conditional_t<APPROX, __nv_bfloat16, float>;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A product operand as it is written to shared memory: rounded to bf16 on
+// the approximate profiles, as it is on the exact one.
+template <bool APPROX>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (APPROX) return round_bf16(x);
+  else return x;
+}
+
+// An alpha element from / to f32. Conversions of values only: the kernels
+// load and store alpha through their own __restrict__ parameters, since
+// nvcc moves the loads of alpha past the stores of the outputs only then
+// (with a helper that takes the pointer, even a __restrict__ one, the
+// backward kernel fell from 126 to 79 registers on an H100 build).
+__device__ __forceinline__ float alpha_to_float(float v) { return v; }
+__device__ __forceinline__ float alpha_to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <bool APPROX>
+__device__ __forceinline__ AlphaT<APPROX> float_to_alpha(float v) {
+  if constexpr (APPROX) return __float2bfloat16_rn(v);
+  else return v;
+}
 
 // Dynamic shared memory a kernel needs for KP states and n_red reduction
 // buffers: the staged operator [KP][KP], one [KP][kPairs] operand and the
@@ -45,6 +94,51 @@ __device__ __forceinline__ void stage_operator(float* __restrict__ sM,
       reinterpret_cast<const float4*>(M + static_cast<size_t>(op) * KP * KP);
   float4* dst = reinterpret_cast<float4*>(sM);
   for (int i = threadIdx.x; i < KP * KP / 4; i += kThreads) dst[i] = __ldg(src + i);
+}
+
+// The bf16 pair in one 32-bit word as two floats (element 2i in the low
+// half): exact, a bf16 is the top half of an f32.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Copy operator `op` into shared memory on the approximate profiles: its
+// values rounded to bf16, held as f32. `M` is [G][KP][KP] f32 (fast,
+// rounded here) or bf16 (turbo, already rounded by the host), so both
+// profiles stage the same values.
+__device__ __forceinline__ void stage_operator_bf16(float* __restrict__ sM,
+                                                    const float* __restrict__ M,
+                                                    bool bf16_store, int op,
+                                                    int G, int KP) {
+  if (op < 0 || op >= G) __trap();
+  const size_t base = static_cast<size_t>(op) * KP * KP;
+  float4* dst = reinterpret_cast<float4*>(sM);
+  if (bf16_store) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        reinterpret_cast<const __nv_bfloat16*>(M) + base);
+    for (int i = threadIdx.x; i < KP * KP / 8; i += kThreads) {
+      const uint4 u = __ldg(src + i);
+      dst[2 * i] = make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+      dst[2 * i + 1] = make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w));
+    }
+  } else {
+    const float4* src = reinterpret_cast<const float4*>(M + base);
+    for (int i = threadIdx.x; i < KP * KP / 4; i += kThreads) {
+      const float4 v = __ldg(src + i);
+      dst[i] = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                           round_bf16(v.w));
+    }
+  }
+}
+
+// Stage an operator as the profile reads it.
+template <bool APPROX>
+__device__ __forceinline__ void stage(float* __restrict__ sM,
+                                      const float* __restrict__ M,
+                                      bool bf16_store, int op, int G, int KP) {
+  if constexpr (APPROX) stage_operator_bf16(sM, M, bf16_store, op, G, KP);
+  else stage_operator(sM, M, op, G, KP);
 }
 
 // acc[i] = sum_j sM[k_i][j] * sV[j][lane], j ascending, for this thread's rows.
@@ -86,26 +180,29 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-}  // namespace fastsmc
+// Call `f(std::integral_constant<int, RPW>{})` for the row count `rpw` in
+// 1..16 (K <= 128): each instantiates its kernels for that RPW.
+template <typename F, int... R>
+int dispatch_rpw_impl(int rpw, F&& f, std::integer_sequence<int, R...>) {
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  (void)((rpw == R + 1 ? (rc = f(std::integral_constant<int, R + 1>{}), true)
+                       : false) || ...);
+  return rc;
+}
 
-// Instantiate `launch<RPW>(args...)` for the row counts 1..16 (K <= 128).
-#define FASTSMC_DISPATCH_RPW(rpw, launch, ...)                     \
-  switch (rpw) {                                                   \
-    case 1: return launch<1>(__VA_ARGS__);                         \
-    case 2: return launch<2>(__VA_ARGS__);                         \
-    case 3: return launch<3>(__VA_ARGS__);                         \
-    case 4: return launch<4>(__VA_ARGS__);                         \
-    case 5: return launch<5>(__VA_ARGS__);                         \
-    case 6: return launch<6>(__VA_ARGS__);                         \
-    case 7: return launch<7>(__VA_ARGS__);                         \
-    case 8: return launch<8>(__VA_ARGS__);                         \
-    case 9: return launch<9>(__VA_ARGS__);                         \
-    case 10: return launch<10>(__VA_ARGS__);                       \
-    case 11: return launch<11>(__VA_ARGS__);                       \
-    case 12: return launch<12>(__VA_ARGS__);                       \
-    case 13: return launch<13>(__VA_ARGS__);                       \
-    case 14: return launch<14>(__VA_ARGS__);                       \
-    case 15: return launch<15>(__VA_ARGS__);                       \
-    case 16: return launch<16>(__VA_ARGS__);                       \
-    default: return static_cast<int>(cudaErrorInvalidValue);       \
-  }
+template <typename F>
+int dispatch_rpw(int rpw, F&& f) {
+  return dispatch_rpw_impl(rpw, f, std::make_integer_sequence<int, 16>{});
+}
+
+// Launch-time check of a variant's shared memory: above 48 KB a kernel must
+// opt in.
+template <typename Kernel>
+int allow_shared(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+}  // namespace fastsmc

@@ -1,10 +1,12 @@
 """Batched forward-backward decoder in plain PyTorch: the specification.
 
-Counterpart of ``fastsmc_tpu/engine/hmm.py`` (``BatchedDecoder``, array
-mode): a per-site Python loop of ``M[op] @ carry``, the emission
+Counterpart of ``fastsmc_tpu/engine/hmm.py`` (``BatchedDecoder``, array and
+sequence mode): a per-site Python loop of ``M[op] @ carry``, the emission
 ``em1 + em0minus1*obsIsZero + em2minus0*obsIsHomMinor`` (HMM.cpp:827-828)
-and normalisation under the scaling-skip mask. It runs on any device and
-is what the kernels' tests check against; the pipeline never runs it.
+and normalisation under the scaling-skip mask; in sequence mode each site
+is a homozygous half-step and a marker step (HMM.cpp:760-770, 915-925). It
+runs on any device, in float32 whatever the decode profile, and is what the
+kernels' tests check against; the pipeline never runs it.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ class BatchedDecoder:
         self.Tb = t.Mb[:, :K, :K]
         self.em = t.em[:, :, :K]
         self.isp = t.isp[:K]
+        self.sequence = t.sequence
 
     def decode_pairs(self, hap_a, hap_b, t0: int = 0,
                      t_len: Optional[int] = None) -> torch.Tensor:
@@ -56,7 +59,18 @@ class BatchedDecoder:
         pad = T - real
         ident = torch.full((pad,), t.identity_op, dtype=torch.int64,
                            device=dev)
-        ops = torch.cat([t.gap_op[t0:t0 + real - 1], ident])      # [T-1]
+
+        def pad_ops(x):
+            return torch.cat([x[t0:t0 + real - 1], ident])       # [T-1]
+
+        ops = pad_ops(t.gap_op)
+        if self.sequence:
+            # hmm.py:219-232: padded gaps take identity operators and
+            # all-ones homozygous emissions
+            sop, sop_b = pad_ops(t.seq_op), pad_ops(t.seq_op_bwd)
+            rop = torch.cat([t.rate_op[t0:t0 + real], ident])      # [T]
+            hem = torch.cat([t.homoz[t0:t0 + real - 1, :self.K],
+                             torch.ones((pad, self.K), device=dev)])
         mask = (torch.arange(t0, t0 + T, device=dev)
                 % t.scaling_skip) == 0
         em = self.em[t0:t0 + real]
@@ -79,11 +93,19 @@ class BatchedDecoder:
 
         alpha = [_normalize(self.isp[:, None] * emission(0), True)]
         for i in range(1, T):
-            nxt = emission(i) * (self.Tf[ops[i - 1]] @ alpha[-1])
+            if self.sequence:
+                mid = hem[i - 1][:, None] * (self.Tf[sop[i - 1]] @ alpha[-1])
+                nxt = emission(i) * (self.Tf[rop[i]] @ mid)
+            else:
+                nxt = emission(i) * (self.Tf[ops[i - 1]] @ alpha[-1])
             alpha.append(_normalize(nxt, mask[i]))
         beta = [torch.full_like(alpha[0], 1.0 / self.K)]
         for i in range(T - 2, -1, -1):
-            prev = self.Tb[ops[i]] @ (beta[-1] * emission(i + 1))
+            if self.sequence:
+                mid = self.Tb[sop_b[i]] @ (beta[-1] * hem[i][:, None])
+                prev = self.Tb[rop[i]] @ (mid * emission(i + 1))
+            else:
+                prev = self.Tb[ops[i]] @ (beta[-1] * emission(i + 1))
             beta.append(_normalize(prev, mask[i]))
         post = torch.stack(alpha) * torch.stack(beta[::-1])
         return post / post.sum(dim=1, keepdim=True)

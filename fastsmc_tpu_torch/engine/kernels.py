@@ -1,7 +1,8 @@
 """Forward and backward+combine decode: CUDA kernels and their plain versions.
 
-Counterpart of ``fastsmc_tpu/engine/kernels.py`` (``PallasDecoder``), array
-mode, exact profile. Each kernel has a plain PyTorch version in this module:
+Counterpart of ``fastsmc_tpu/engine/kernels.py`` (``PallasDecoder``): array
+and sequence mode, on the exact, fast and turbo profiles. Each kernel has a
+plain PyTorch version in this module:
 
   * :func:`forward` launches ``csrc/hmm_forward.cu`` (replaces the Pallas
     ``_make_fwd_kernel``); :func:`forward_reference` is its plain version.
@@ -12,8 +13,21 @@ mode, exact profile. Each kernel has a plain PyTorch version in this module:
     :func:`backward_combine_reference` and :func:`block_reduce_reference`
     are their plain versions.
 
+The profiles are the JAX package's (``_PRECISIONS`` kernels.py:59-73,
+``_profile_kwargs`` pipelines/asmc.py:33-42). "exact": f32 products, f32
+alpha, the carry normalised at every scaling site. "fast" and "turbo": both
+operands of every product rounded to bf16 (to nearest even) and the product
+accumulated in f32 -- the TPU's single-pass matrix unit -- and alpha stored
+as bf16; turbo stores the operators as bf16, fast rounds f32 operators as
+it reads them, so the two give the same bits. In array mode the
+approximate profiles normalise the carry only at the last site of each
+``BLOCK_SITES``-site block (kernels.py:135-148, :233-243, :394-398); the
+posterior combine renormalises every site, so this is exact in exact
+arithmetic.
+
 A wrapper runs the plain version only for tensors on the CPU. For a CUDA
-tensor it launches its kernel or raises; ``LAUNCHES`` counts the launches.
+tensor it launches its kernel or raises; ``LAUNCHES`` counts the launches
+of each kernel instantiation (:func:`kernel_name`).
 """
 
 from __future__ import annotations
@@ -30,9 +44,18 @@ from . import segments as seg
 from ._build import load_library
 from .tables import DecodeTables
 
-# launches per kernel since the last clear(): the wrapper adds one exactly
-# where it launches its kernel
+# launches per kernel instantiation since the last clear(): the wrapper
+# adds one exactly where it launches its kernel
 LAUNCHES: collections.Counter = collections.Counter()
+
+PROFILES = ("exact", "fast", "turbo")
+# the C interface's profile codes (csrc/hmm_common.cuh)
+_PROFILE_CODE = {"exact": 0, "fast": 1, "turbo": 2}
+# sites per normalisation block on the approximate profiles, array mode; the
+# TPU's S (kernels.py:401-434) is a VMEM shape, 8 wherever it fits. Every
+# decode window (a power-of-two multiple of 64 sites) is a whole number of
+# blocks.
+BLOCK_SITES = 8
 
 
 class BwdOutputs(NamedTuple):
@@ -44,11 +67,41 @@ class BwdOutputs(NamedTuple):
     major_minor_sums: bool = False       # 00/01/11-partitioned pair sums
 
 
+class Seq(NamedTuple):
+    """Sequence-mode operands of one pass over a window (kernels.py:506-531):
+    the rate operator of each step and the homozygous emission the step's
+    first product is weighted by; the step's first operator (the seq-gap
+    one) is the pass's ``ops``."""
+    rops: torch.Tensor   # int32 [T]
+    hem: torch.Tensor    # f32 [T, KP]
+
+
 # outputs the backward kernel produces
 KERNEL_OUTPUTS = BwdOutputs._fields
 # pairs a backward-kernel block owns (kPairs in csrc/hmm_common.cuh): the
 # over-pairs sums leave one partial per block
 PAIRS_PER_BLOCK = 32
+
+
+def kernel_name(kernel: str, seq: bool, profile: str) -> str:
+    """``LAUNCHES`` key of one instantiation, e.g. ``hmm_forward`` (array,
+    exact), ``hmm_backward_seq``, ``hmm_forward_seq_turbo``."""
+    return kernel + ("_seq" if seq else "") + \
+        ("" if profile == "exact" else f"_{profile}")
+
+
+def alpha_dtype(profile: str) -> torch.dtype:
+    return torch.float32 if profile == "exact" else torch.bfloat16
+
+
+def operator_dtype(profile: str) -> torch.dtype:
+    return torch.bfloat16 if profile == "turbo" else torch.float32
+
+
+def _check_profile(profile: str) -> None:
+    if profile not in PROFILES:
+        raise ValueError(f"unknown decode profile {profile!r}; one of "
+                         f"{PROFILES}")
 
 
 def resolve_device(device) -> torch.device:
@@ -66,38 +119,82 @@ def _emission(em_t, obs_t):
             + em_t[2][:, None] * obs_t[1][None, :])
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), back in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
-def forward_reference(Mf, em, obs, isp, ops, mask) -> torch.Tensor:
-    """alpha ``[T, KP, P]``: the forward recursion of kernels.py:96-165
-    (array branch, per-site normalisation)."""
+def _profile_ops(profile: str, seq, norm_block):
+    _check_profile(profile)
+    approx = profile != "exact"
+    if norm_block is None:
+        norm_block = approx and seq is None
+    if norm_block and seq is not None:
+        # two half-steps a site: the homozygous emissions of long gaps
+        # underflow an unnormalised f32 carry within a block
+        raise ValueError("block normalisation is for array mode only")
+    return (_bf16 if approx else _identity), norm_block
+
+
+def forward_reference(Mf, em, obs, isp, ops, mask, seq: Optional[Seq] = None,
+                      profile: str = "exact",
+                      norm_block: Optional[bool] = None) -> torch.Tensor:
+    """alpha ``[T, KP, P]`` (bf16 on the approximate profiles): the forward
+    recursion of kernels.py:96-165. ``norm_block`` (default: the profile's
+    rule) normalises at site 0 and at the last site of each
+    ``BLOCK_SITES``-site block instead of where ``mask`` is set."""
+    rnd, norm_block = _profile_ops(profile, seq, norm_block)
     T = obs.shape[0]
-    M = Mf.index_select(0, ops)                       # [T, KP, KP]
+    M = rnd(Mf.index_select(0, ops).float())          # [T, KP, KP]
+    if seq is not None:
+        M2 = rnd(Mf.index_select(0, seq.rops).float())
     alpha = torch.empty((T, Mf.shape[-1], obs.shape[2]),
-                        dtype=torch.float32, device=obs.device)
+                        dtype=alpha_dtype(profile), device=obs.device)
     c = isp[:, None] * _emission(em[0], obs[0])
     c = c / c.sum(dim=0, keepdim=True)
     alpha[0] = c
     for t in range(1, T):
-        c = (M[t] @ c) * _emission(em[t], obs[t])
-        s = c.sum(dim=0, keepdim=True)
-        c = c * torch.where(mask[t] != 0, 1.0 / s, 1.0)
+        if seq is None:
+            c = (M[t] @ rnd(c)) * _emission(em[t], obs[t])
+        else:
+            # kernels.py:128-134: homozygous half-step, then marker step
+            mid = (M[t] @ rnd(c)) * seq.hem[t][:, None]
+            c = (M2[t] @ rnd(mid)) * _emission(em[t], obs[t])
+        if norm_block:
+            if t % BLOCK_SITES == BLOCK_SITES - 1:
+                c = c * (1.0 / c.sum(dim=0, keepdim=True))
+        else:
+            s = c.sum(dim=0, keepdim=True)
+            c = c * torch.where(mask[t] != 0, 1.0 / s, 1.0)
         alpha[t] = c
     return alpha
 
 
 def backward_combine_reference(Mb, em, obs, alpha, ops, mask, K: int,
                                state_threshold: int, outs: BwdOutputs,
-                               exp_times=None) -> dict:
-    """Backward recursion + posterior combine of kernels.py:185-293 (array
-    branch). Returns the requested outputs at the kernel's padded shapes:
+                               exp_times=None, seq: Optional[Seq] = None,
+                               profile: str = "exact",
+                               norm_block: Optional[bool] = None) -> dict:
+    """Backward recursion + posterior combine of kernels.py:185-293.
+    Returns the requested outputs at the kernel's padded shapes, all f32:
     posterior [T, KP, P], posterior_sums [T, KP], per_pair_mean,
-    per_pair_map, threshold_sums [T, P], major_minor_sums [T, 3, KP]."""
+    per_pair_map, threshold_sums [T, P], major_minor_sums [T, 3, KP].
+    With ``norm_block`` beta is normalised at the last site of each
+    ``BLOCK_SITES``-site block counted from the window's end."""
+    rnd, norm_block = _profile_ops(profile, seq, norm_block)
     T, KP, P = alpha.shape
     dev = alpha.device
-    M = Mb.index_select(0, ops)
+    M = rnd(Mb.index_select(0, ops).float())
+    if seq is not None:
+        M2 = rnd(Mb.index_select(0, seq.rops).float())
     f32 = dict(dtype=torch.float32, device=dev)
     shapes = dict(posterior=(T, KP, P), posterior_sums=(T, KP),
                   per_pair_mean=(T, P), per_pair_map=(T, P),
@@ -108,10 +205,21 @@ def backward_combine_reference(Mb, em, obs, alpha, ops, mask, K: int,
     beta = beta.to(torch.float32)[:, None].expand(KP, P)
     for pos in range(T - 1, -1, -1):
         if pos < T - 1:
-            c = M[pos] @ (beta * _emission(em[pos + 1], obs[pos + 1]))
-            s = c.sum(dim=0, keepdim=True)
-            beta = c * torch.where(mask[pos] != 0, 1.0 / s, 1.0)
-        post = alpha[pos] * beta
+            e = _emission(em[pos + 1], obs[pos + 1])
+            if seq is None:
+                c = M[pos] @ rnd(beta * e)
+            else:
+                # kernels.py:227-230
+                mid = M[pos] @ rnd(beta * seq.hem[pos][:, None])
+                c = M2[pos] @ rnd(mid * e)
+            if norm_block:
+                g = T - 1 - pos
+                beta = c * (1.0 / c.sum(dim=0, keepdim=True)) \
+                    if g % BLOCK_SITES == BLOCK_SITES - 1 else c
+            else:
+                s = c.sum(dim=0, keepdim=True)
+                beta = c * torch.where(mask[pos] != 0, 1.0 / s, 1.0)
+        post = alpha[pos].float() * beta
         post = post / post.sum(dim=0, keepdim=True)
         if outs.posterior:
             out["posterior"][pos] = post
@@ -150,19 +258,30 @@ def _check(name, x, dtype, shape):
                          f"{x.device} (contiguous={x.is_contiguous()})")
 
 
-def _check_inputs(M, em, obs, ops, mask):
+def _check_inputs(M, em, obs, ops, mask, seq, profile):
     if obs.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {obs.device}")
+    _check_profile(profile)
     T, _, P = obs.shape
     G, KP, _ = M.shape
-    _check("operators", M, torch.float32, (G, KP, KP))
+    _check("operators", M, operator_dtype(profile), (G, KP, KP))
     _check("em", em, torch.float32, (T, 3, KP))
     _check("obs", obs, torch.float32, (T, 2, P))
     _check("ops", ops, torch.int32, (T,))
     _check("mask", mask, torch.int32, (T,))
-    if any(x.device != obs.device for x in (M, em, ops, mask)):
+    tensors = [M, em, ops, mask]
+    if seq is not None:
+        _check("rops", seq.rops, torch.int32, (T,))
+        _check("hem", seq.hem, torch.float32, (T, KP))
+        tensors += list(seq)
+    if any(x.device != obs.device for x in tensors):
         raise ValueError("kernel inputs lie on different devices")
     return T, P, G, KP
+
+
+def _seq_ptrs(seq: Optional[Seq]):
+    return (None, None) if seq is None else (seq.rops.data_ptr(),
+                                             seq.hem.data_ptr())
 
 
 def _raise_on(rc: int, kernel: str):
@@ -170,21 +289,25 @@ def _raise_on(rc: int, kernel: str):
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
 
 
-def forward(Mf, em, obs, isp, ops, mask) -> torch.Tensor:
-    """alpha ``[T, KP, P]`` f32: the CUDA forward kernel for CUDA tensors,
-    :func:`forward_reference` for CPU tensors."""
+def forward(Mf, em, obs, isp, ops, mask, seq: Optional[Seq] = None,
+            profile: str = "exact") -> torch.Tensor:
+    """alpha ``[T, KP, P]`` (f32 exact, bf16 fast/turbo): the CUDA forward
+    kernel for CUDA tensors, :func:`forward_reference` for CPU tensors.
+    ``Mf`` is bf16 on the turbo profile, f32 otherwise."""
     if obs.device.type == "cpu":
-        return forward_reference(Mf, em, obs, isp, ops, mask)
-    T, P, G, KP = _check_inputs(Mf, em, obs, ops, mask)
+        return forward_reference(Mf, em, obs, isp, ops, mask, seq, profile)
+    T, P, G, KP = _check_inputs(Mf, em, obs, ops, mask, seq, profile)
     _check("isp", isp, torch.float32, (KP,))
-    alpha = torch.empty((T, KP, P), dtype=torch.float32, device=obs.device)
+    alpha = torch.empty((T, KP, P), dtype=alpha_dtype(profile),
+                        device=obs.device)
+    name = kernel_name("hmm_forward", seq is not None, profile)
     rc = load_library().fastsmc_hmm_forward(
-        Mf.data_ptr(), G, em.data_ptr(), obs.data_ptr(), isp.data_ptr(),
-        ops.data_ptr(), mask.data_ptr(), alpha.data_ptr(), T, P, KP,
-        obs.device.index or 0,
+        Mf.data_ptr(), _PROFILE_CODE[profile], G, em.data_ptr(),
+        obs.data_ptr(), isp.data_ptr(), ops.data_ptr(), *_seq_ptrs(seq),
+        mask.data_ptr(), alpha.data_ptr(), T, P, KP, obs.device.index or 0,
         torch.cuda.current_stream(obs.device).cuda_stream)
-    _raise_on(rc, "hmm_forward")
-    LAUNCHES["hmm_forward"] += 1
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return alpha
 
 
@@ -207,17 +330,19 @@ def block_reduce(part: torch.Tensor) -> torch.Tensor:
 
 def backward_combine(Mb, em, obs, alpha, ops, mask, K: int,
                      state_threshold: int, outs: BwdOutputs,
-                     exp_times=None) -> dict:
+                     exp_times=None, seq: Optional[Seq] = None,
+                     profile: str = "exact") -> dict:
     """Requested :class:`BwdOutputs` at padded shapes (see
     :func:`backward_combine_reference`): the CUDA backward+combine kernel,
     and the block reduction for the sums over pairs, for CUDA tensors; the
     plain version for CPU tensors. ``exp_times`` ``[KP]`` is needed for
-    ``per_pair_mean``."""
+    ``per_pair_mean``; ``alpha`` is bf16 on the fast/turbo profiles."""
     if obs.device.type == "cpu":
         return backward_combine_reference(Mb, em, obs, alpha, ops, mask, K,
-                                          state_threshold, outs, exp_times)
-    T, P, G, KP = _check_inputs(Mb, em, obs, ops, mask)
-    _check("alpha", alpha, torch.float32, (T, KP, P))
+                                          state_threshold, outs, exp_times,
+                                          seq, profile)
+    T, P, G, KP = _check_inputs(Mb, em, obs, ops, mask, seq, profile)
+    _check("alpha", alpha, alpha_dtype(profile), (T, KP, P))
     if not 0 <= state_threshold <= K <= KP:
         raise ValueError(f"need 0 <= state_threshold={state_threshold} <= "
                          f"K={K} <= KP={KP}")
@@ -236,16 +361,18 @@ def backward_combine(Mb, em, obs, alpha, ops, mask, K: int,
     def ptr(name):
         return buf[name].data_ptr() if name in buf else None
 
+    name = kernel_name("hmm_backward", seq is not None, profile)
     rc = load_library().fastsmc_hmm_backward(
-        Mb.data_ptr(), G, em.data_ptr(), obs.data_ptr(), alpha.data_ptr(),
-        ops.data_ptr(), mask.data_ptr(),
+        Mb.data_ptr(), _PROFILE_CODE[profile], G, em.data_ptr(),
+        obs.data_ptr(), alpha.data_ptr(), ops.data_ptr(), *_seq_ptrs(seq),
+        mask.data_ptr(),
         exp_times.data_ptr() if outs.per_pair_mean else None,
         ptr("posterior"), ptr("threshold_sums"), ptr("per_pair_mean"),
         ptr("per_pair_map"), ptr("posterior_sums"), ptr("major_minor_sums"),
         T, P, K, KP, state_threshold, obs.device.index or 0,
         torch.cuda.current_stream(obs.device).cuda_stream)
-    _raise_on(rc, "hmm_backward")
-    LAUNCHES["hmm_backward"] += 1
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     for name in ("posterior_sums", "major_minor_sums"):
         if name in buf:
             buf[name] = block_reduce(buf[name])
@@ -258,22 +385,29 @@ def backward_combine(Mb, em, obs, alpha, ops, mask, K: int,
 
 class GpuDecoder:
     """Device tables + the two kernels, with the ``PallasDecoder`` interface
-    the FastSMC pipeline uses (array mode, exact profile)."""
+    the pipelines use, in the context's decoding mode and on one of
+    :data:`PROFILES`."""
 
     supports_fused_extract = True
-    alpha_dtype = torch.float32
 
-    def __init__(self, ctx: DecodeContext, device):
+    def __init__(self, ctx: DecodeContext, device,
+                 decode_profile: str = "exact"):
+        _check_profile(decode_profile)
         self.device = resolve_device(device)
-        self.tables = DecodeTables.from_context(ctx, self.device)
+        self.profile = decode_profile
+        self.alpha_dtype = alpha_dtype(decode_profile)
+        self.tables = DecodeTables.from_context(
+            ctx, self.device, operator_dtype(decode_profile))
+        self.sequence = self.tables.sequence
         self.K = self.tables.K
         self.L = self.tables.L
 
     def prologue(self, hap_a, hap_b, t0: int, T: int):
-        """Kernel inputs for the window [t0, t0+T) (kernels.py:467-531):
+        """Kernel inputs for the window [t0, t0+T) (kernels.py:467-504):
         obs [T, 2, P] (oz=1, oh=0 past the panel), em [T, 3, KP] (identity
         rows past ``real``), ops_f/ops_b [T] (identity outside the window's
-        real gaps) and the scaling mask [T], all on the tables' device."""
+        real gaps; the seq-gap operators in sequence mode) and the scaling
+        mask [T], all on the tables' device."""
         t = self.tables
         L, dev = self.L, t.device
         real = min(T, L - t0)
@@ -294,20 +428,50 @@ class GpuDecoder:
                          ident_em).contiguous()
         ident = torch.tensor(t.identity_op, device=dev)
         gap_f = (site - 1).clamp(0, L - 2)
-        ops_f = torch.where((steps >= 1) & valid, t.gap_op[gap_f], ident)
         gap_b = site.clamp(0, L - 2)
-        ops_b = torch.where(steps < real - 1, t.gap_op[gap_b], ident)
+        op_f, op_b = (t.seq_op, t.seq_op_bwd) if self.sequence \
+            else (t.gap_op, t.gap_op)
+        ops_f = torch.where((steps >= 1) & valid, op_f[gap_f], ident)
+        ops_b = torch.where(steps < real - 1, op_b[gap_b], ident)
         mask = (site % t.scaling_skip) == 0
         return (obs, em, ops_f.to(torch.int32), ops_b.to(torch.int32),
                 mask.to(torch.int32))
+
+    def seq_prologue(self, t0: int, T: int):
+        """Sequence-mode operands of the forward and the backward pass over
+        [t0, t0+T) (kernels.py:506-531): forward step t takes the rate
+        operator of site t0+t and the homozygous emissions of gap t0+t-1,
+        backward step pos those of site and gap t0+pos; identity operators
+        and all-ones emissions outside the window's real gaps."""
+        t = self.tables
+        L, dev = self.L, t.device
+        real = min(T, L - t0)
+        steps = torch.arange(T, device=dev)
+        site = t0 + steps
+        ident = torch.tensor(t.identity_op, device=dev)
+        rate = t.rate_op[site.clamp(max=L - 1)]
+        fwd = (steps >= 1) & (steps < real)
+        bwd = steps < real - 1
+        hem_f = torch.where(fwd[:, None], t.homoz[(site - 1).clamp(0, L - 2)],
+                            1.0)
+        hem_b = torch.where(bwd[:, None], t.homoz[site.clamp(0, L - 2)], 1.0)
+        return (Seq(torch.where(fwd, rate, ident).to(torch.int32),
+                    hem_f.contiguous()),
+                Seq(torch.where(bwd, rate, ident).to(torch.int32),
+                    hem_b.contiguous()))
 
     def _decode_body(self, hap_a, hap_b, t0: int, T: int, outs: BwdOutputs,
                      state_threshold: int) -> dict:
         t = self.tables
         obs, em, ops_f, ops_b, mask = self.prologue(hap_a, hap_b, t0, T)
-        alpha = forward(t.Mf, em, obs, t.isp, ops_f, mask)
+        seq_f = seq_b = None
+        if self.sequence:
+            seq_f, seq_b = self.seq_prologue(t0, T)
+        alpha = forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                        self.profile)
         return backward_combine(t.Mb, em, obs, alpha, ops_b, mask, self.K,
-                                state_threshold, outs, t.exp_times)
+                                state_threshold, outs, t.exp_times, seq_b,
+                                self.profile)
 
     def decode_pairs(self, hap_a, hap_b, t0: int = 0,
                      t_len: Optional[int] = None,

@@ -1,14 +1,16 @@
 """Device decode tables: the model state every decode window reads.
 
 Counterpart of the table set-up in ``fastsmc_tpu/engine/kernels.py``
-(``PallasDecoder.__init__`` and ``_tables()``), array mode. The TPU pads
-the state axis to 128 lanes; here it is padded only to a multiple of 8,
-which is what the kernels' 8-warp row split needs (K=69 -> 72).
+(``PallasDecoder.__init__`` :342-385 and ``_tables()``), array and sequence
+mode. The TPU pads the state axis to 128 lanes; here it is padded only to a
+multiple of 8, which is what the kernels' 8-warp row split needs (K=69 ->
+72).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,8 +31,8 @@ def padded_states(K: int) -> int:
 @dataclasses.dataclass
 class DecodeTables:
     K: int                    # real hidden states
-    Mf: torch.Tensor          # f32 [G, KP, KP] dense forward operators
-    Mb: torch.Tensor          # f32 [G, KP, KP] dense backward operators
+    Mf: torch.Tensor          # [G, KP, KP] dense forward operators
+    Mb: torch.Tensor          # [G, KP, KP] dense backward operators
     gap_op: torch.Tensor      # int64 [L-1] operator row of gap (g, g+1)
     identity_op: int          # operator row of a zero genetic distance
     em: torch.Tensor          # f32 [L, 3, KP] em1, em0minus1, em2minus0
@@ -38,6 +40,13 @@ class DecodeTables:
     exp_times: torch.Tensor   # f32 [KP] expected coalescence times
     hap_bits: torch.Tensor    # uint8 [H, L] folded haplotypes
     scaling_skip: int = 1     # normalise where site % skip == 0
+    # sequence mode only (kernels.py:363-369): the forward and backward
+    # seq-gap operators of gap (g, g+1), the rate operator of each site, and
+    # the homozygous emissions of each gap (1.0 in the padded states)
+    seq_op: Optional[torch.Tensor] = None      # int64 [L-1]
+    seq_op_bwd: Optional[torch.Tensor] = None  # int64 [L-1]
+    rate_op: Optional[torch.Tensor] = None     # int64 [L]
+    homoz: Optional[torch.Tensor] = None       # f32 [L-1, KP]
 
     @property
     def KP(self) -> int:
@@ -50,6 +59,10 @@ class DecodeTables:
     @property
     def device(self) -> torch.device:
         return self.Mf.device
+
+    @property
+    def sequence(self) -> bool:
+        return self.seq_op is not None
 
     def set_expected_times(self, times) -> None:
         """Replace ``exp_times[:K]`` (the times the ``per_pair_mean`` output
@@ -64,16 +77,21 @@ class DecodeTables:
         self.exp_times = e
 
     @classmethod
-    def from_context(cls, ctx: DecodeContext, device) -> "DecodeTables":
-        """Build the tables from a host :class:`DecodeContext`."""
-        if ctx.params.decoding_sequence:
-            raise NotImplementedError("sequence mode is not ported yet")
+    def from_context(cls, ctx: DecodeContext, device,
+                     op_dtype=torch.float32) -> "DecodeTables":
+        """Build the tables from a host :class:`DecodeContext`; the
+        operators are stored as ``op_dtype`` (bf16 for the turbo
+        profile, rounded to nearest even)."""
         dq = ctx.dq
         K = dq.states
         KP = padded_states(K)
+        seq = ctx.params.decoding_sequence
         zero_row = int(dq.gen_dist_index(np.float32(0.0)))
-        used = np.unique(np.concatenate([np.asarray(ctx.gap_idx),
-                                         np.asarray([zero_row])]))
+        used = [np.asarray(ctx.gap_idx), np.asarray([zero_row])]
+        if seq:
+            used += [np.asarray(ctx.seq_gap_idx),
+                     np.asarray(ctx.seq_gap_idx_bwd), np.asarray(ctx.rate_idx)]
+        used = np.unique(np.concatenate(used))
         remap = np.full(len(dq.gen_dists), -1, np.int32)
         remap[used] = np.arange(len(used), dtype=np.int32)
         Tf, Tb = build_dense_operators(dq.D[used], dq.B[used], dq.U[used],
@@ -91,35 +109,65 @@ class DecodeTables:
         isp[:K] = dq.initial_state_prob
         expt = np.zeros(KP, np.float32)
         expt[:K] = dq.expected_times
+        seq_tabs = None
+        if seq:
+            hz = np.ones((ctx.data.sites - 1, KP), np.float32)
+            hz[:, :K] = dq.homozygous_emissions[ctx.homoz_idx]
+            seq_tabs = dict(seq_op=remap[np.asarray(ctx.seq_gap_idx)],
+                            seq_op_bwd=remap[np.asarray(ctx.seq_gap_idx_bwd)],
+                            rate_op=remap[np.asarray(ctx.rate_idx)],
+                            homoz=hz)
         return cls._upload(K, Mf, Mb, remap[np.asarray(ctx.gap_idx)],
                            int(remap[zero_row]), em, isp, expt,
-                           ctx.data.hap_bits, ctx.scaling_skip, device)
+                           ctx.data.hap_bits, ctx.scaling_skip, device,
+                           op_dtype, seq_tabs)
 
     @classmethod
     def from_numpy(cls, d: dict, K: int, device) -> "DecodeTables":
         """Take the JAX ``PallasDecoder``'s tables as numpy arrays (keys of
-        its ``_tables()`` plus ``gap_op``, ``identity_op``, ``hap_bits``
-        and optionally ``scaling_skip``) and strip their 128-lane padding
-        down to :func:`padded_states`."""
+        its ``_tables()`` plus ``gap_op``, ``identity_op``, ``hap_bits``,
+        optionally ``scaling_skip``, and in sequence mode ``seq_op``,
+        ``seq_op_bwd`` and ``rate_op``) and strip their 128-lane padding
+        down to :func:`padded_states`. bf16 operators (the turbo profile's)
+        stay bf16."""
         KP = padded_states(K)
+        Mf, Mb = np.asarray(d["Mf"]), np.asarray(d["Mb"])
+        op_dtype = torch.float32
+        if Mf.dtype != np.float32:
+            # ml_dtypes' bfloat16: every value is exact in f32
+            op_dtype = torch.bfloat16
+            Mf, Mb = Mf.astype(np.float32), Mb.astype(np.float32)
+        seq_tabs = None
+        if "homoz" in d:
+            seq_tabs = dict(seq_op=d["seq_op"], seq_op_bwd=d["seq_op_bwd"],
+                            rate_op=d["rate_op"],
+                            homoz=np.asarray(d["homoz"])[:, 0, :KP])
         return cls._upload(
-            K, np.asarray(d["Mf"])[:, :KP, :KP],
-            np.asarray(d["Mb"])[:, :KP, :KP], np.asarray(d["gap_op"]),
+            K, Mf[:, :KP, :KP], Mb[:, :KP, :KP], np.asarray(d["gap_op"]),
             int(d["identity_op"]), np.asarray(d["em"])[:, :, :KP],
             np.asarray(d["isp"]).reshape(-1)[:KP],
             np.asarray(d["exp"]).reshape(-1)[:KP], np.asarray(d["hap_bits"]),
-            int(d.get("scaling_skip", 1)), device)
+            int(d.get("scaling_skip", 1)), device, op_dtype, seq_tabs)
 
     @classmethod
     def _upload(cls, K, Mf, Mb, gap_op, identity_op, em, isp, expt,
-                hap_bits, scaling_skip, device) -> "DecodeTables":
+                hap_bits, scaling_skip, device, op_dtype=torch.float32,
+                seq_tabs: Optional[dict] = None) -> "DecodeTables":
         def f32(x):
             return torch.tensor(np.asarray(x, np.float32), device=device)
-        return cls(K=K, Mf=f32(Mf), Mb=f32(Mb),
-                   gap_op=torch.tensor(np.asarray(gap_op, np.int64),
-                                       device=device),
-                   identity_op=identity_op, em=f32(em), isp=f32(isp),
-                   exp_times=f32(expt),
+
+        def i64(x):
+            return torch.tensor(np.asarray(x, np.int64), device=device)
+
+        seq = {}
+        if seq_tabs is not None:
+            seq = dict(seq_op=i64(seq_tabs["seq_op"]),
+                       seq_op_bwd=i64(seq_tabs["seq_op_bwd"]),
+                       rate_op=i64(seq_tabs["rate_op"]),
+                       homoz=f32(seq_tabs["homoz"]))
+        return cls(K=K, Mf=f32(Mf).to(op_dtype), Mb=f32(Mb).to(op_dtype),
+                   gap_op=i64(gap_op), identity_op=identity_op, em=f32(em),
+                   isp=f32(isp), exp_times=f32(expt),
                    hap_bits=torch.tensor(np.asarray(hap_bits, np.uint8),
                                          device=device),
-                   scaling_skip=int(scaling_skip))
+                   scaling_skip=int(scaling_skip), **seq)

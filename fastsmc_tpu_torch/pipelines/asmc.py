@@ -1,7 +1,7 @@
 """ASMC on the GPU: all-pairs posterior decoding and the targeted-pair API.
 
-Counterpart of ``fastsmc_tpu/pipelines/asmc.py`` (array mode, exact
-profile): ``decode_all_in_job`` enumerates the job's pair range
+Counterpart of ``fastsmc_tpu/pipelines/asmc.py`` (array and sequence
+mode; exact, fast and turbo profiles): ``decode_all_in_job`` enumerates the job's pair range
 (HMM.cpp:310-364) batch by batch through the two CUDA kernels, which sum
 the posteriors over pairs on the card (``posterior_sums``,
 ``major_minor_sums``) and emit the per-pair posterior means and MAP states
@@ -31,7 +31,8 @@ from fastsmc_tpu.io.decoding_quantities import DecodingQuantities
 from fastsmc_tpu.io.haps import Data, load_data
 
 from ..engine.hmm import bucket_len
-from ..engine.kernels import BwdOutputs, GpuDecoder, PAIRS_PER_BLOCK
+from ..engine.kernels import (BwdOutputs, GpuDecoder, PAIRS_PER_BLOCK,
+                              PROFILES, alpha_dtype)
 from ..engine.tables import padded_states
 
 # The helpers and result types below are copies of
@@ -111,15 +112,17 @@ def pairs_from_flat_indices(idx: np.ndarray, within_only: bool = False
     return h1, h2
 
 
-def max_batch(free_bytes: int, sites: int, states: int) -> int:
+def max_batch(free_bytes: int, sites: int, states: int,
+              alpha_bytes: int = 4) -> int:
     """Most pairs a batch may hold on a device with ``free_bytes`` free:
-    half of it for the [T, KP, P] f32 forward messages, the backward
-    kernel's per-block partials and the per-pair outputs on the longest
-    window (the whole chromosome), in whole 32-pair blocks. The other half
-    is left to the caching allocator."""
+    half of it for the [T, KP, P] forward messages (``alpha_bytes`` an
+    element: 4 exact, 2 fast/turbo), the backward kernel's per-block
+    partials and the per-pair outputs on the longest window (the whole
+    chromosome), in whole 32-pair blocks. The other half is left to the
+    caching allocator."""
     KP = padded_states(states)
-    per_pair = 4 * bucket_len(sites) * (
-        KP * (PAIRS_PER_BLOCK + 4) // PAIRS_PER_BLOCK + 2)
+    per_pair = bucket_len(sites) * (
+        alpha_bytes * KP + 4 * (KP * 4 // PAIRS_PER_BLOCK + 2))
     return max(PAIRS_PER_BLOCK, free_bytes // 2 // per_pair
                // PAIRS_PER_BLOCK * PAIRS_PER_BLOCK)
 
@@ -146,18 +149,15 @@ class ASMC:
                  mesh=None):
         """Arguments as the JAX package's ``ASMC``, with ``device`` (where
         the tables live and the kernels run: "cuda", or "cpu" for the
-        plain versions) in place of ``use_pallas``. ``params.no_batches``
-        decodes pair by pair with the scalar ``OracleDecoder`` on the host.
-        A mesh, a profile other than "exact" and sequence mode raise
-        ``NotImplementedError`` until they are ported."""
-        off_path = {
-            "mesh": mesh is not None,
-            "decode_profile != 'exact'": decode_profile != "exact",
-            "sequence mode": params.decoding_mode == "sequence",
-        }
-        unported = [k for k, v in off_path.items() if v]
-        if unported:
-            raise NotImplementedError(f"not ported yet: {unported}")
+        plain versions) in place of ``use_pallas``. ``decode_profile`` is
+        "exact", "fast" or "turbo" (the JAX package's profiles; fast and
+        turbo give the same bits). ``params.no_batches`` decodes pair by
+        pair with the scalar ``OracleDecoder`` on the host. A mesh raises
+        ``NotImplementedError`` until it is ported."""
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: ['mesh']")
+        if decode_profile not in PROFILES:
+            raise ValueError(f"unknown decode profile {decode_profile!r}")
         self.params = params
         self.data = data if data is not None else load_data(params)
         self.dq = dq if dq is not None else DecodingQuantities.load(
@@ -167,7 +167,7 @@ class ASMC:
             # reference noBatches debug path: scalar oracle per pair
             self.decoder = OracleDecoder(self.ctx)
         else:
-            self.decoder = GpuDecoder(self.ctx, device)
+            self.decoder = GpuDecoder(self.ctx, device, decode_profile)
         self.batch_size = batch_size or max(params.batch_size, 64)
         if isinstance(self.decoder, GpuDecoder) \
                 and self.decoder.device.type == "cuda":
@@ -176,7 +176,8 @@ class ASMC:
             # rounding
             free, _ = torch.cuda.mem_get_info(self.decoder.device)
             self.batch_size = min(self.batch_size, max_batch(
-                free, self.data.sites, self.dq.states))
+                free, self.data.sites, self.dq.states,
+                alpha_dtype(decode_profile).itemsize))
 
         # expected coalescent times for per-pair posterior means: from
         # --expectedCoalTimesFile when given (HMM.cpp:1741-1748, non-FastSMC

@@ -1,7 +1,8 @@
 """FastSMC pipeline on the GPU: hashing, batched validation, IBD output.
 
-Counterpart of ``fastsmc_tpu/pipelines/fastsmc.py`` in array mode, exact
-profile, with the reference's record columns. In hashing mode the
+Counterpart of ``fastsmc_tpu/pipelines/fastsmc.py`` in array and sequence
+mode, on the exact, fast and turbo profiles, with the reference's record
+columns. In hashing mode the
 GERMLINE2 scan runs natively on a producer thread; each candidate is
 bucketed into the smallest aligned power-of-two window holding its 0.5
 cM-padded match; a full bucket is one batch. Without hashing every pair of
@@ -99,18 +100,17 @@ class FastSMC:
                  mesh=None,
                  sort_batches: int = 0,
                  bucket_sites: Optional[int] = None):
-        """Arguments as the JAX package's ``FastSMC``; everything off the
-        main path raises ``NotImplementedError`` until it is ported.
-        ``device`` is where the tables live and the kernels run: "cuda"
-        (raises without CUDA) or "cpu" (the plain versions, for tests)."""
+        """Arguments as the JAX package's ``FastSMC``; ``decode_profile``
+        is "exact", "fast" or "turbo". The entry options not ported yet
+        raise ``NotImplementedError``. ``device`` is where the tables live
+        and the kernels run: "cuda" (raises without CUDA) or "cpu" (the
+        plain versions, for tests)."""
         off_path = {
             "hashing_backend != 'host'": hashing_backend != "host",
-            "decode_profile != 'exact'": decode_profile != "exact",
             "mesh": mesh is not None,
             "sort_batches": bool(sort_batches),
             "bucket_sites=0": bucket_sites == 0,
             "permissive_window": params.permissive_window,
-            "sequence mode": params.decoding_mode == "sequence",
         }
         unported = [k for k, v in off_path.items() if v]
         if unported:
@@ -122,7 +122,7 @@ class FastSMC:
         self.dq = dq if dq is not None else DecodingQuantities.load(
             params.decoding_quant_file)
         self.ctx = DecodeContext.build(params, self.data, self.dq)
-        self.decoder = GpuDecoder(self.ctx, device)
+        self.decoder = GpuDecoder(self.ctx, device, decode_profile)
 
         K = self.dq.states
         self.state_threshold = seg.state_threshold(
@@ -140,10 +140,12 @@ class FastSMC:
         self._drains_since_ckpt = 0
         self._group: List[dict] = []
         # decode memory guard of the JAX package (fastsmc.py:236-247),
-        # kept as it is: the split shapes programs, never outputs
+        # kept as it is: the split shapes programs, never outputs; a bf16
+        # alpha (fast/turbo) takes twice the elements
         self._pad_floor = 256
         self._post_budget = 8 << 20
-        self._alpha_budget = 16 << 20
+        self._alpha_budget = (32 << 20) \
+            if self.decoder.alpha_dtype.itemsize == 2 else (16 << 20)
         self._gp32 = np.float32(self.data.genetic_positions)
         self.bucket_sites = 64 if bucket_sites is None else bucket_sites
         self._buckets: dict = {}        # region -> list of column tuples

@@ -308,10 +308,7 @@ def test_batch_shrinks_to_the_memory_budget(panel, tmp_path):
     assert a.batch_size == 8192
 
 
-@pytest.mark.parametrize("kw", [dict(mesh="a device mesh"),
-                                dict(decode_profile="fast"),
-                                dict(params=dict(decoding_mode="sequence"))],
-                         ids=str)
+@pytest.mark.parametrize("kw", [dict(mesh="a device mesh")], ids=str)
 def test_asmc_off_path_options_raise(panel, tmp_path, kw):
     kw = dict(kw)
     params = _params(panel, tmp_path / "o")

@@ -96,11 +96,9 @@ def test_example_array_matches_golden(repo_root, tmp_path):
 
 
 OFF_PATH = [
-    dict(hashing_backend="device"), dict(decode_profile="fast"),
-    dict(decode_profile="turbo"), dict(mesh="a device mesh"),
+    dict(hashing_backend="device"), dict(mesh="a device mesh"),
     dict(sort_batches=8), dict(bucket_sites=0),
     dict(params=dict(permissive_window=True)),
-    dict(params=dict(decoding_mode="sequence")),
 ]
 
 
