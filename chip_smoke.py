@@ -4,7 +4,8 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
   1. the card (name, power limit) and the torch/CUDA versions;
-  2. build the three CUDA sources from csrc/ with nvcc, one process each;
+  2. build the four CUDA sources from csrc/ with nvcc, one process each,
+     and the native host library (g++; the run fails without it);
   3. each kernel against its plain PyTorch version on the card: the forward
      kernel (alpha) and the backward kernel with all six outputs, at a
      main-path shape (T=1024, P=8192), at a window padded past the panel
@@ -19,7 +20,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      tests/fixtures/example_array.golden.FastSMC.ibd.gz in order, with
      float columns within relative 1e-4;
   5. FastSMC scale leg: the 16,384-haplotype x 6,400-site folded
-     founder-mosaic panel (scripts/biobank_probe.py make_panel), batch
+     founder-mosaic panel (fastsmc_tpu_torch.probes.biobank make_panel,
+     a copy of scripts/biobank_probe.py's), batch
      8192, min_m 1.5, ages on, exact profile, run twice with identical
      output;
   6. ASMC golden leg: the sums of pairs 2,691..3,138 (jobs=100, job 7) of
@@ -55,9 +57,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      panel turbo equals fast bit for bit (FastSMC records, ASMC
      sequence-mode sums) and fast is within PROFILE_SUM_ATOL per pair of the
      sequence-mode golden.
+ 13. the alpha-wall probe (fastsmc_tpu_torch.probes.alpha_wall, run before
+     the legs of 4.-12.): its six variants' kernels against their plain
+     versions at the probe's shape (T=4096, P=8192, KC=128, KA=72, S=8)
+     and with P=8187 (raw alpha within ALPHA_WALL_FWD_RTOL, the backward
+     output within ALPHA_WALL_BWD_ATOL; two wrongly normalising forwards
+     must miss the alpha gate), then the probe's main(): the six median
+     times and the alpha write and read costs.
 Each leg clears the launch counts before it runs and fails unless every
-kernel of its path was launched. The last line is {"ok": true, "device":
-{...}}; the line before it lists the kernels as JSON. Outputs go to
+kernel of its path was launched. The line before the last lists the
+kernels as JSON, each with its time, its plain version's, its bound on the
+card (bound_ms, bound_by: see MEM_BW, PEAK), the time of the one PyTorch
+call that computes the same function where there is one (library_ms), its
+launches over all legs and per scale leg; the line before that is the
+card's name and power limit. The last line is {"ok": true, "device":
+{...}}. The run imports nothing of JAX or of the JAX package. Outputs go to
 build/chip_smoke/ in the checkout.
 
     python3 chip_smoke.py --ab-parent DIR
@@ -133,6 +147,29 @@ PROFILE_MEAN_RTOL = 5e-2
 PROFILE_MAP_AGREE = 0.8
 GOLDEN_RTOL = 1e-4
 F1_MIN = 0.99
+# the alpha-wall probe's kernels against their plain versions (phase 13),
+# per pass: bf16 operands, f32 sums in another order, the carry rounded to
+# bf16 at every site, so the two drift at bf16 level once a rounding parts
+# them. Alpha is held raw, element by element, relative to the plain
+# version's value (every value is a sum of positive products, so a
+# normalisation at the wrong site or by the wrong sum shows as a wrong
+# scale); one bf16 step is 2^-8 to 2^-7 relative. Largest readings on an
+# H100 over the six variants at P=8192 and 8187: forward alpha 7.8e-3
+# relative (2^-7: one bf16 step, in every forward variant), backward
+# output 1.8e-5 absolute (values in (0, 1]). Gates: two bf16 steps on
+# alpha, about 10x the reading on the backward. A forward that normalises
+# at every site, held to fwd_norm_block's plain version, reads 36; one
+# that divides by the stored rows' sum reads 1.18.
+ALPHA_WALL_FWD_RTOL = 1.6e-2
+ALPHA_WALL_BWD_ATOL = 2e-4
+# the card's published peaks (H100 SXM, dense, at 700 W): HBM bytes/s and
+# FLOP/s by operand type. A
+# bound is the larger of bytes / MEM_BW and FLOP / PEAK[type], counting
+# each input byte read once and each output byte written once, and the
+# operator products only (the elementwise work of the decode kernels is
+# ~3 % more); bf16 operands with f32 sums are tensor-core work.
+MEM_BW = 3.35e12
+PEAK = {"f32": 67e12, "bf16": 989e12}
 SCALE_HAPS = 16384
 # where the tables live and the kernels run
 DEVICE = "cuda"
@@ -181,6 +218,39 @@ def median_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(nbytes: float, flop: float, kind: str) -> dict:
+    """The least time the card could take: bound_ms, and bound_by "bytes"
+    or "operations", whichever sets it."""
+    mem_ms = 1e3 * nbytes / MEM_BW
+    op_ms = 1e3 * flop / PEAK[kind]
+    return {"bound_ms": max(mem_ms, op_ms),
+            "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
+
+
+def decode_bound(kernel: str, T: int, P: int, K: int, G: int, seq: bool,
+                 profile: str, outs=None) -> dict:
+    """Bound of the forward (``outs`` None) or backward+reduction kernel on
+    a T-site window of P pairs at K real states: the T-1 steps' K x K
+    products (two a step in sequence mode), f32 on the exact profile and
+    bf16 operands otherwise; bytes of the observations, emission rows,
+    homozygous emissions (sequence mode), the G operators of the panel,
+    alpha (f32 exact, bf16 otherwise; written or read) and the requested
+    outputs (the sums over pairs as the reduced [T, K] and [T, 3, K])."""
+    approx = profile != "exact"
+    ab = 2 if approx else 4
+    nbytes = 4 * (2 * T * P + 3 * T * K + (T * K if seq else 0)) \
+        + G * K * K * (2 if profile == "turbo" else 4) \
+        + T * K * P * ab
+    if outs is not None:
+        nbytes += 4 * (T * K * P * outs.posterior
+                       + T * P * (outs.threshold_sums + outs.per_pair_mean
+                                  + outs.per_pair_map)
+                       + T * K * (outs.posterior_sums
+                                  + 3 * outs.major_minor_sums))
+    flop = 2 * (T - 1) * P * K * K * (2 if seq else 1)
+    return bound(nbytes, flop, "bf16" if approx else "f32")
 
 
 def run_leg(kernels, name: str, need, fn):
@@ -281,16 +351,20 @@ def compare_kernels(dec, kernels) -> dict:
             res["hmm_backward"]["max_abs_err"], raw)
         res["hmm_backward"]["errors"][label] = errs
         if label == "main-path":
-            time_main_path(kernels, res, fwd_args, bwd_args, all_outs, P)
+            time_main_path(dec, kernels, res, fwd_args, bwd_args, P)
         del alpha, alpha_ref, got, want
     time_asmc_shape(dec, kernels, res, rng)
     return res
 
 
-def time_main_path(kernels, res, fwd_args, bwd_args, all_outs, P):
-    """Kernel and plain times at the main-path shape: forward; backward
-    with the FastSMC outputs (posterior + threshold sums) and with each
-    output alone; the block reduction of the two sums' partials."""
+def time_main_path(dec, kernels, res, fwd_args, bwd_args, P):
+    """Kernel and plain times at the main-path shape, with their bounds:
+    forward; backward with the FastSMC outputs (posterior + threshold
+    sums) and with each output alone; the block reduction of the two sums'
+    partials, and the one PyTorch call that computes the same sum."""
+    T, G = bwd_args[3].shape[0], dec.tables.Mf.shape[0]
+    res["hmm_forward"].update(decode_bound("forward", T, P, dec.K, G, False,
+                                           "exact"))
     res["hmm_forward"]["ms"] = median_ms(
         lambda: kernels.forward(*fwd_args), 10)
     res["hmm_forward"]["plain_ms"] = median_ms(
@@ -306,10 +380,11 @@ def time_main_path(kernels, res, fwd_args, bwd_args, all_outs, P):
         per_output[name] = {
             "ms": median_ms(lambda: kernels.backward_combine(*args), 10),
             "plain_ms": median_ms(
-                lambda: kernels.backward_combine_reference(*args), 3)}
+                lambda: kernels.backward_combine_reference(*args), 3),
+            **decode_bound("backward", T, P, dec.K, G, False, "exact", outs)}
     res["hmm_backward"].update(per_output["posterior+threshold_sums"])
     res["hmm_backward"]["per_output"] = per_output
-    T, KP = bwd_args[3].shape[:2]
+    KP = bwd_args[3].shape[1]
     nblk = -(-P // kernels.PAIRS_PER_BLOCK)
     gen = torch.Generator(device="cuda").manual_seed(0)
     err, times = 0.0, {}
@@ -319,10 +394,16 @@ def time_main_path(kernels, res, fwd_args, bwd_args, all_outs, P):
         got = kernels.block_reduce(part)
         err = max(err, (got - kernels.block_reduce_reference(part))
                   .abs().max().item())
+        # each partial read once, the sums written once; the adds (f64 in
+        # the kernel) counted at the f32 rate: the bytes set the bound
+        E = part[0].numel()
         times[name] = {
             "ms": median_ms(lambda: kernels.block_reduce(part), 10),
             "plain_ms": median_ms(
-                lambda: kernels.block_reduce_reference(part), 10)}
+                lambda: kernels.block_reduce_reference(part), 10),
+            "library_ms": median_ms(
+                lambda: part.sum(0, dtype=torch.float64), 10),
+            **bound(4 * (nblk + 1) * E, nblk * E, "f32")}
         del part, got
     if err > KERNEL_ATOL:
         raise AssertionError(f"block reduction disagrees: {err}")
@@ -391,8 +472,14 @@ def time_asmc_shape(dec, kernels, res, rng):
             res["hmm_forward"]["max_abs_err"], a_err)
         res["hmm_backward"]["errors"][label] = errs
         if P == 8192:
-            res["hmm_forward"]["asmc_shape_ms"] = ms["forward"]
-            res["hmm_backward"]["asmc_shape_ms"] = ms["backward+reduce"]
+            G = t.Mf.shape[0]
+            for name, key, o in (("hmm_forward", "forward", None),
+                                 ("hmm_backward", "backward+reduce", outs)):
+                b = decode_bound(name.split("_")[1], T, P, dec.K, G, False,
+                                 "exact", o)
+                res[name].update(asmc_shape_ms=ms[key],
+                                 asmc_shape_bound_ms=b["bound_ms"],
+                                 asmc_shape_bound_by=b["bound_by"])
         del alpha, got, want
 
 
@@ -556,6 +643,12 @@ def compare_variants(decs, kernels) -> dict:
                     lambda: kernels.forward(*fwd_args), reps)
                 rb[key + "ms"] = median_ms(
                     lambda: kernels.backward_combine(*fb_args), reps)
+                for r, o in ((rf, None), (rb, fb)):
+                    b = decode_bound("forward" if o is None else "backward",
+                                     T, P, dec.K, t.Mf.shape[0],
+                                     mode == "sequence", profile, o)
+                    r[key + "bound_ms"] = b["bound_ms"]
+                    r[key + "bound_by"] = b["bound_by"]
                 if which == "all":
                     rf["plain_ms"] = median_ms(
                         lambda: kernels.forward_reference(*fwd_args), 3)
@@ -575,6 +668,119 @@ def compare_variants(decs, kernels) -> dict:
         log(f"[variants] {bname}: " + json.dumps(
             {k: v for k, v in rb.items() if k != "errors"}))
     return res
+
+
+def alpha_wall_bound(shape, name: str) -> dict:
+    """Bound of one probe variant at ``shape``: the products' FLOP on bf16
+    operands (T-1 products forward, T backward), the observations,
+    emission rows, operators and alpha (every site or once per block;
+    bf16) and the backward output."""
+    from fastsmc_tpu_torch.probes.alpha_wall import VARIANTS
+    kind, every, _ = VARIANTS[name]
+    T, P, KC, KA = shape.T, shape.P, shape.KC, shape.KA
+    rows = T if every else T // shape.S
+    nbytes = 4 * (2 * T * P + 3 * T * KC + KC) + 2 * shape.G * KC * KC \
+        + 4 * T + 2 * rows * KA * P + (4 * T * P if kind == "bwd" else 0)
+    steps = T - 1 if kind == "fwd" else T
+    return bound(nbytes, 2 * steps * P * KC * KC, "bf16")
+
+
+def stored_rows_witness(alpha, chunk: int = 256) -> float:
+    """What a probe forward that divides the carry by the sum of its stored
+    rows (instead of all KC) at every site would read against ``alpha``,
+    the plain version that normalises at every site: alpha divided by the
+    sum of its own rows, held by the forward's gate measure."""
+    err = 0.0
+    for t in range(0, alpha.shape[0], chunk):
+        x = alpha[t:t + chunk].float()
+        err = max(err, ((x / x.sum(dim=1, keepdim=True) - x).abs() / x)
+                  .max().item())
+    return err
+
+
+def alpha_wall_phase(kernels):
+    """Phase 13: the alpha-wall probe's two kernels. Each of the six
+    variants against its plain version on the card at the probe's shape
+    (P=8192) and with dead lanes (P=8187): alpha raw, within
+    ALPHA_WALL_FWD_RTOL of the plain value at every element, the backward
+    output within ALPHA_WALL_BWD_ATOL. At P=8192, two forwards that
+    normalise in the wrong place (at every site under block
+    normalisation; by the stored rows' sum) must miss that gate. Then the
+    probe's main() with the launch counts cleared, which times the six
+    variants (median of 20 passes, CUDA events) and the alpha write and
+    read costs. Returns (per-kernel rows, the probe's launches)."""
+    import dataclasses
+    from fastsmc_tpu_torch.probes import alpha_wall as aw
+    shape = aw.Shape()
+    res = {f"alpha_wall_{k}": {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                               "variants": {}}
+           for k in ("forward", "backward")}
+    witness = {}
+    for P in (shape.P, 8187):
+        sh = dataclasses.replace(shape, P=P)
+        inp = aw.make_inputs(sh, DEVICE)
+        every_site = None
+        for name, (kind, _, _) in aw.VARIANTS.items():
+            got = aw.run_variant(name, inp, sh)
+            plain_ms, want = once_ms(
+                lambda: aw.run_variant(name, inp, sh, plain=True))
+            err, rel = aw.max_errors(got, want)
+            finite = bool(torch.isfinite(got.float()).all())
+            del got
+            gate_err, gate = (rel, ALPHA_WALL_FWD_RTOL) if kind == "fwd" \
+                else (err, ALPHA_WALL_BWD_ATOL)
+            log(f"[alpha-wall] {name} P={P}: max|diff| against the plain "
+                f"version {err:.3g}, relative {rel:.3g}, finite={finite}, "
+                f"plain {plain_ms:.1f} ms")
+            if not finite or gate_err > gate:
+                raise AssertionError(f"alpha-wall {name} at P={P}: {err} "
+                                     f"(relative {rel}; gate {gate})")
+            if P == shape.P and name == "fwd_store":
+                every_site = want
+                witness["divides by the stored rows' sum"] = \
+                    stored_rows_witness(want)
+            elif P == shape.P and name == "fwd_norm_block":
+                witness["ignores NORM_BLOCK"] = aw.max_errors(every_site,
+                                                              want)[1]
+                every_site = None
+            del want
+            row = res["alpha_wall_" + ("forward" if kind == "fwd"
+                                       else "backward")]
+            v = row["variants"].setdefault(name, {"max_abs_err": 0.0,
+                                                  "max_rel_err": 0.0})
+            for r in (row, v):
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                r["max_rel_err"] = max(r["max_rel_err"], rel)
+            if P == shape.P:
+                v.update(plain_ms=plain_ms, **alpha_wall_bound(sh, name))
+        del inp
+        torch.cuda.empty_cache()
+    log("[alpha-wall] wrong forwards against the plain versions, relative "
+        f"(gate {ALPHA_WALL_FWD_RTOL}): {json.dumps(witness)}")
+    if min(witness.values()) <= ALPHA_WALL_FWD_RTOL:
+        raise AssertionError(f"the alpha gate passes a wrong forward: "
+                             f"{witness}")
+    res["alpha_wall_forward"]["wrong_forwards_rel"] = witness
+    probe, launches = run_leg(
+        kernels, "alpha-wall probe",
+        ("alpha_wall_forward", "alpha_wall_backward"),
+        lambda: aw.main(["--reps", "20"]))
+    for name, ms in probe["ms"].items():
+        row = res["alpha_wall_" + ("forward" if name.startswith("fwd")
+                                   else "backward")]
+        row["variants"][name]["ms"] = ms
+    for k, name in (("forward", "fwd_store"), ("backward", "bwd_read")):
+        v = res[f"alpha_wall_{k}"]["variants"][name]
+        res[f"alpha_wall_{k}"].update(
+            {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    log("[alpha-wall] " + json.dumps(
+        {k: probe[k] for k in ("card", "ms", "alpha_GB_per_pass",
+                               "write_cost_ms", "write_GB_per_s",
+                               "read_cost_ms", "read_GB_per_s")})
+        + f"; launches {launches}")
+    log("[alpha-wall] variants: " + json.dumps(
+        {k: r["variants"] for k, r in res.items()}))
+    return res, launches
 
 
 def ptxas_registers(text: str, tag: str):
@@ -604,6 +810,9 @@ def ab_parent(parent: str, dec, kernels, this_log: str,
     build log)."""
     import importlib
     import types
+    # a parent from before the port owned its host modules imports
+    # fastsmc_tpu, whose __init__ imports JAX unless this is set
+    os.environ.setdefault("FASTSMC_TPU_NO_CACHE", "1")
     pkg = types.ModuleType("parent_port")
     pkg.__path__ = [os.path.join(parent, "fastsmc_tpu_torch")]
     sys.modules[pkg.__name__] = pkg
@@ -762,7 +971,7 @@ def seq_golden_leg(FastSMC, DecodingParams, kernels) -> dict:
 def fastsmc_profiles_leg(FastSMC, DecodingParams, kernels) -> dict:
     """The example panel on the fast and turbo profiles: the same bytes,
     and bp-F1 >= F1_MIN against the exact golden."""
-    from scripts.f1_vs_reference import f1_scores
+    from fastsmc_tpu_torch.probes.f1 import f1_scores
     launches, digests, path = {}, {}, None
     for profile in ("fast", "turbo"):
         params = DecodingParams.fastsmc_defaults(
@@ -1012,12 +1221,18 @@ def build_log(info, KP: int, K: int) -> None:
                          f"{'bf16' if approx else 'exact'}"
                          + (f", {outs}" if kind == "backward" else "") + ")")
             log(f"[build] {kind} kernel, K={K}: {line.strip()}")
+        elif fn and "alpha_wall" in fn \
+                and ("registers" in line or "spill" in line):
+            kind = "forward" if "forward" in fn else "backward"
+            every, norm = re.findall(r"Lb([01])E", fn)[:2]
+            log(f"[build] alpha-wall {kind} kernel (every site {every}, "
+                f"block normalisation {norm}): {line.strip()}")
 
 
 def variant_decoders(DecodingParams, kernels, data) -> dict:
     """GpuDecoder per (mode, profile) on one panel's tables."""
-    from fastsmc_tpu.engine.oracle import DecodeContext
-    from fastsmc_tpu.io.decoding_quantities import DecodingQuantities
+    from fastsmc_tpu_torch.engine.oracle import DecodeContext
+    from fastsmc_tpu_torch.io.decoding_quantities import DecodingQuantities
     dq = DecodingQuantities.load(DQ)
     decs = {}
     for mode in ("array", "sequence"):
@@ -1043,15 +1258,22 @@ def main() -> int:
         f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
     os.makedirs(OUT, exist_ok=True)
 
-    from fastsmc_tpu_torch import ASMC, DecodingParams, FastSMC
+    from fastsmc_tpu_torch import ASMC, DecodingParams, FastSMC, native
     from fastsmc_tpu_torch.engine import _build, kernels
-    from fastsmc_tpu.io.haps import load_data
-    from scripts.biobank_probe import make_panel
-    from scripts.f1_vs_reference import f1_scores
+    from fastsmc_tpu_torch.io.haps import load_data
+    from fastsmc_tpu_torch.probes.biobank import make_panel
+    from fastsmc_tpu_torch.probes.f1 import f1_scores
 
-    # 2. build
+    # 2. build: the CUDA sources, and the native host library (without it
+    # the scale legs would run the pure-Python scan)
     info = _build.build()
     log(f"[build] {info.path.name} in {info.seconds:.1f} s")
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError("the native host library did not build or load "
+                             f"({native.library_path()})")
+    log(f"[build] native host library {native.library_path().name} loaded "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels vs plain versions, on the tables of a 4,096-hap panel
     decs = variant_decoders(DecodingParams, kernels,
@@ -1067,12 +1289,22 @@ def main() -> int:
     del dec, decs
     torch.cuda.empty_cache()
 
-    # 4.-9., 11., 12. the legs; launches summed over every leg's own run
+    # 4.-9., 11.-13. the legs; launches summed over every leg's own run, and
+    # kept per scale leg
     launches: dict = {}
+    per_leg: dict = {}
 
-    def add(counts):
+    def add(counts, leg=None):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+        if leg:
+            per_leg[leg] = dict(counts)
+
+    # 13. the alpha-wall probe
+    aw_rows, n = alpha_wall_phase(kernels)
+    kres.update(aw_rows)
+    add(n, "alpha_wall_probe")
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     scale_data = make_panel(SCALE_HAPS, seed=0)
@@ -1083,26 +1315,26 @@ def main() -> int:
     add(golden_leg(FastSMC, DecodingParams, kernels))
     n, exact_records, _ = scale_leg(FastSMC, DecodingParams, kernels,
                                     scale_data)
-    add(n)
+    add(n, "fastsmc_scale")
     add(asmc_golden_leg(ASMC, DecodingParams, kernels, example))
     n, exact_streams = asmc_per_pair_leg(ASMC, DecodingParams, kernels,
                                          example)
     add(n)
     n, exact_sums, _ = asmc_scale_leg(ASMC, DecodingParams, kernels,
                                       scale_data)
-    add(n)
+    add(n, "asmc_scale")
     add(no_hashing_leg(FastSMC, DecodingParams, kernels, example))
     # 11. sequence mode
     add(asmc_golden_leg(ASMC, DecodingParams, kernels, example, "sequence"))
     add(seq_golden_leg(FastSMC, DecodingParams, kernels))
     add(asmc_scale_leg(ASMC, DecodingParams, kernels, scale_data,
-                       mode="sequence")[0])
+                       mode="sequence")[0], "asmc_scale_sequence")
     # 12. the fast/turbo profiles; the fast ASMC leg takes the batch cap its
     # bf16 alpha allows
     n, fast_sums, row = asmc_scale_leg(ASMC, DecodingParams, kernels,
                                        scale_data, profile="fast",
                                        batch_size=None)
-    add(n)
+    add(n, "asmc_scale_fast")
     errs = {f: float(np.abs(x - y).max()) / row["pairs"]
             for f, x, y in zip(SUMS, fast_sums, exact_sums)}
     log(f"[asmc-scale] fast against exact, max|diff| per pair "
@@ -1115,7 +1347,7 @@ def main() -> int:
     per_pair_profile_check(fast_streams, exact_streams)
     n, fast_records, _ = scale_leg(FastSMC, DecodingParams, kernels,
                                    scale_data, profile="fast")
-    add(n)
+    add(n, "fastsmc_scale_fast")
     t0 = time.perf_counter()
     f1 = f1_scores(exact_records, fast_records)
     log(f"[scale] fast against exact records: {json.dumps(f1)} "
@@ -1125,20 +1357,45 @@ def main() -> int:
     add(asmc_profiles_leg(ASMC, DecodingParams, kernels, example))
     add(fastsmc_profiles_leg(FastSMC, DecodingParams, kernels))
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    # the port imports nothing of JAX or of the JAX package; an A/B parent
+    # from before the port owned its host modules imports fastsmc_tpu, so
+    # --ab-parent exempts that check (and says so)
+    banned = ("jax", "jaxlib") if args.ab_parent else \
+        ("jax", "jaxlib", "fastsmc_tpu", "scripts")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+    if loaded:
+        raise AssertionError(f"the run imported {loaded}")
+    if args.ab_parent:
+        log("[imports] --ab-parent: the parent checkout may import "
+            "fastsmc_tpu; only jax and jaxlib were checked")
+    log("[launches] per scale leg: " + json.dumps(per_leg))
+    sources = {  # LAUNCHES key prefix -> (source, the TPU kernel it replaces)
+        "hmm_forward": ("hmm_forward.cu", "fastsmc_tpu/engine/kernels.py:96"),
+        "hmm_backward": ("hmm_backward.cu",
+                         "fastsmc_tpu/engine/kernels.py:185"),
+        # the over-pairs sums in _make_bwd_kernel's body
+        "hmm_block_reduce": ("hmm_reduce.cu",
+                             "fastsmc_tpu/engine/kernels.py:267"),
+        "alpha_wall_forward": ("alpha_wall.cu",
+                               "scripts/alpha_wall_probe.py:74"),
+        "alpha_wall_backward": ("alpha_wall.cu",
+                                "scripts/alpha_wall_probe.py:137")}
     rows = []
     for name, res in kres.items():
-        kernel = name.split("_")[1]      # forward, backward, block
-        src, line = {"forward": ("hmm_forward.cu", "96"),
-                     "backward": ("hmm_backward.cu", "185"),
-                     # the over-pairs sums in _make_bwd_kernel's body
-                     "block": ("hmm_reduce.cu", "267")}[kernel]
-        rows.append(dict(
-            name=name, route="cuda",
-            source=f"fastsmc_tpu_torch/csrc/{src}",
-            replaces=f"fastsmc_tpu/engine/kernels.py:{line}",
-            launches=launches.get(name, 0), **res))
+        src, replaces = next(v for k, v in sources.items()
+                             if name.startswith(k))
+        row = dict(name=name, route="cuda",
+                   source=f"fastsmc_tpu_torch/csrc/{src}", replaces=replaces,
+                   launches=launches.get(name, 0), library_ms=None)
+        row.update(res)
+        row["launches_per_leg"] = {leg: n.get(name, 0)
+                                   for leg, n in per_leg.items()}
+        rows.append(row)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    incomplete = [r["name"] for r in rows if any(k not in r for k in keys)]
+    if incomplete:
+        raise AssertionError(f"kernel rows without {keys}: {incomplete}")
     idle = [r["name"] for r in rows if r["launches"] < 1]
     if idle:
         raise AssertionError(f"no leg launched {idle}")

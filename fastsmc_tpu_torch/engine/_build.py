@@ -22,7 +22,8 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("hmm_forward.cu", "hmm_backward.cu", "hmm_reduce.cu")
+SOURCES = ("hmm_forward.cu", "hmm_backward.cu", "hmm_reduce.cu",
+           "alpha_wall.cu")
 HEADERS = ("hmm_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "fastsmc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,6 +42,14 @@ _ARGTYPES = {
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # part, out, nblk, E, device, stream
     "fastsmc_block_reduce": [_P, _P, _I, ctypes.c_int64, _I, _P],
+    # M, G, em, obs, isp, ops, alpha, T, P, KC, KA, S, store_every,
+    # norm_block, device, stream
+    "fastsmc_alpha_wall_forward": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _P],
+    # M, G, em, obs, alpha, ops, out, T, P, KC, KA, S, read_every,
+    # norm_block, device, stream
+    "fastsmc_alpha_wall_backward": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -15,8 +15,7 @@ from typing import Optional
 
 import torch
 
-from fastsmc_tpu.engine.oracle import DecodeContext
-
+from .oracle import DecodeContext
 from .tables import DecodeTables
 
 

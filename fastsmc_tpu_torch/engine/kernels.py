@@ -38,10 +38,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fastsmc_tpu.engine.oracle import DecodeContext
-
 from . import segments as seg
 from ._build import load_library
+from .oracle import DecodeContext
 from .tables import DecodeTables
 
 # launches per kernel instantiation since the last clear(): the wrapper

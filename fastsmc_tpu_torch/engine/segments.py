@@ -8,8 +8,8 @@ kept-run selection, run scores, per-run posterior-state sums and ages.
 PyTorch runs eagerly with dynamic shapes, so the JAX package's static caps
 (raw/kept/pps caps, the packed row, the bounded chunk loop and the
 overflow redo) have no counterpart: extraction returns exactly the kept
-runs. The host helpers (``state_threshold``, ``probability_threshold``)
-are imported from the JAX package's module, which does not import JAX.
+runs. The two host helpers, ``state_threshold`` and
+``probability_threshold``, are copies of that module's.
 """
 
 from __future__ import annotations
@@ -17,11 +17,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fastsmc_tpu.engine.segments import (  # noqa: F401
-    probability_threshold, state_threshold)
-
 _NONE = 4          # level of a site below every threshold
 _CHUNK_ELEMS = 1 << 24
+
+
+def state_threshold(discretization: np.ndarray, time: int, states: int) -> int:
+    """HMM::getStateThreshold (HMM.cpp:504-513)."""
+    r = 0
+    while r < states and discretization[r] < float(time):
+        r += 1
+    return r
+
+
+def probability_threshold(initial_state_prob: np.ndarray, st: int) -> float:
+    """HMM.cpp:96-99: cumulative initial-state mass below the threshold
+    (sequential float32 sum like the reference)."""
+    s = np.float32(0.0)
+    for x in initial_state_prob[:st]:
+        s = np.float32(s + np.float32(x))
+    return float(s)
 
 
 def level_thresholds(prob_threshold: float):

@@ -15,8 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fastsmc_tpu.engine.dense import build_dense_operators
-from fastsmc_tpu.engine.oracle import DecodeContext
+from .dense import build_dense_operators
+from .oracle import DecodeContext
 
 MAX_STATES = 128   # the kernels hold at most 16 state rows per warp
 

@@ -24,20 +24,18 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from fastsmc_tpu.config import DecodingParams
-from fastsmc_tpu.engine.oracle import DecodeContext, OracleDecoder
-from fastsmc_tpu.io import writers
-from fastsmc_tpu.io.decoding_quantities import DecodingQuantities
-from fastsmc_tpu.io.haps import Data, load_data
-
+from ..config import DecodingParams
 from ..engine.hmm import bucket_len
 from ..engine.kernels import (BwdOutputs, GpuDecoder, PAIRS_PER_BLOCK,
                               PROFILES, alpha_dtype)
+from ..engine.oracle import DecodeContext, OracleDecoder
 from ..engine.tables import padded_states
+from ..io import writers
+from ..io.decoding_quantities import DecodingQuantities
+from ..io.haps import Data, load_data
 
 # The helpers and result types below are copies of
-# fastsmc_tpu/pipelines/asmc.py:45-86 and :170-197: that module imports
-# JAX, so they cannot be imported from it.
+# fastsmc_tpu/pipelines/asmc.py:45-86 and :170-197.
 
 def hap_to_dip_id(hap: int) -> Tuple[int, int]:
     """HmmUtils.cpp:179-182."""

@@ -20,26 +20,23 @@ from typing import List, Optional
 
 import numpy as np
 
-from fastsmc_tpu.config import DecodingParams
-from fastsmc_tpu.engine.oracle import DecodeContext
-from fastsmc_tpu.hashing.germline import HashingScan
-from fastsmc_tpu.io import writers
-from fastsmc_tpu.io.decoding_quantities import DecodingQuantities
-from fastsmc_tpu.io.haps import Data, load_data
-from fastsmc_tpu.utils.timer import PhaseTimer
-
+from ..config import DecodingParams
 from ..engine import segments as seg
 from ..engine.hmm import bucket_len
 from ..engine.kernels import GpuDecoder, resolve_device
-from ..writers import IbdTextWriter
+from ..engine.oracle import DecodeContext
+from ..hashing.germline import HashingScan
+from ..io import writers
+from ..io.decoding_quantities import DecodingQuantities
+from ..io.haps import Data, load_data
+from ..utils.timer import PhaseTimer
 from .asmc import job_pair_range, pairs_from_flat_indices
 
 # batches decoded before their runs are copied to the host and written
 FLUSH_GROUP = 8
 
 
-# The four pad helpers are copies of fastsmc_tpu/pipelines/fastsmc.py:35-81:
-# that module imports JAX, so they cannot be imported from it.
+# The four pad helpers are copies of fastsmc_tpu/pipelines/fastsmc.py:35-81.
 
 def get_from_position(genetic_positions: np.ndarray, from_pos: int,
                       cm_dist: float = 0.5) -> int:
@@ -164,7 +161,7 @@ class FastSMC:
                 p.do_per_pair_posterior_mean, p.do_per_pair_map,
                 append=append)
         else:
-            self._writer = IbdTextWriter(
+            self._writer = writers.IbdTextWriter(
                 path, self.data.fam_id_list, self.data.iid_list,
                 self.data.chr_number, append=append)
         return path

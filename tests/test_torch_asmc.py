@@ -1,6 +1,7 @@
 """The port's ASMC, and FastSMC without hashing, on the CPU (the kernels'
 plain versions) against the JAX package's ASMC and FastSMC on the CPU
-(``use_pallas=False``), on the same panels, jobs and batches.
+(``use_pallas=False``), on the same panels, jobs and batches. Each side
+reads the panel with its own loader and runs on its own DecodingParams.
 
 Tolerances: sums over n pairs atol 1e-5 * n (f32 sums in another order);
 per-pair posterior means rtol 1e-5 (they are in generations); the
@@ -38,14 +39,16 @@ import numpy as np
 import pytest
 import torch
 
-from fastsmc_tpu.config import DecodingParams
-from fastsmc_tpu.io.haps import load_data
+from fastsmc_tpu.config import DecodingParams as JaxParams
+from fastsmc_tpu.io.haps import load_data as jax_load_data
 from fastsmc_tpu.pipelines import asmc as jax_asmc
 from fastsmc_tpu.pipelines.asmc import ASMC as JaxASMC
 from fastsmc_tpu.pipelines.fastsmc import FastSMC as JaxFastSMC
 
 import fastsmc_tpu_torch
+from fastsmc_tpu_torch.config import DecodingParams
 from fastsmc_tpu_torch.engine import kernels
+from fastsmc_tpu_torch.io.haps import load_data
 from fastsmc_tpu_torch.pipelines import asmc
 
 SUMS = ("sum_over_pairs", "sum_over_pairs00", "sum_over_pairs01",
@@ -65,25 +68,29 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def panel(synthetic_panel_root):
-    """The 150-sample, 640-site synthetic panel, loaded whole (its map is
-    in FastSMC's format), and the decoding quantities' path."""
+    """The 150-sample, 640-site synthetic panel's root and decoding
+    quantities' path, and the panel loaded whole (its map is in FastSMC's
+    format) by the port and by the JAX package."""
     root, dq, d = synthetic_panel_root
-    return root, dq, load_data(DecodingParams.asmc(
-        root, dq, str(d / "load"), fastsmc=True, use_known_seed=True))
+    args = (root, dq, str(d / "load"))
+    return (root, dq,
+            load_data(DecodingParams.asmc(*args, fastsmc=True,
+                                          use_known_seed=True)),
+            jax_load_data(JaxParams.asmc(*args, fastsmc=True,
+                                         use_known_seed=True)))
 
 
-def _params(panel, out, **kw):
-    root, dq, _ = panel
-    return DecodingParams.asmc(root, dq, str(out), use_known_seed=True, **kw)
+def _params(panel, out, cls=DecodingParams, **kw):
+    root, dq = panel[:2]
+    return cls.asmc(root, dq, str(out), use_known_seed=True, **kw)
 
 
 def _pair(panel, out, batch_size=64, **kw):
-    """(port on the CPU, JAX package on the CPU) over the same data."""
-    data = panel[2]
-    port = asmc.ASMC(_params(panel, out / "port", **kw), data=data,
+    """(port on the CPU, JAX package on the CPU) over the same panel."""
+    port = asmc.ASMC(_params(panel, out / "port", **kw), data=panel[2],
                      device="cpu", batch_size=batch_size)
-    ref = JaxASMC(_params(panel, out / "jax", **kw), data=data,
-                  use_pallas=False, batch_size=batch_size)
+    ref = JaxASMC(_params(panel, out / "jax", JaxParams, **kw),
+                  data=panel[3], use_pallas=False, batch_size=batch_size)
     return port, ref
 
 
@@ -276,8 +283,9 @@ def test_example_array_reproduces_jax_golden(repo_root, tmp_path):
 
 
 def test_no_batches_takes_the_oracle(panel, tmp_path):
-    """params.no_batches decodes pair by pair with the JAX package's scalar
-    OracleDecoder; its outputs equal the kernel path's plain versions."""
+    """params.no_batches decodes pair by pair with the scalar
+    OracleDecoder (the port's copy of the JAX package's); its outputs
+    equal the kernel path's plain versions."""
     kw = dict(do_posterior_sums=True, do_major_minor_posterior_sums=True,
               do_per_pair_posterior_mean=True, do_per_pair_map=True,
               within_only=True, jobs=50, job_ind=4)
@@ -328,15 +336,15 @@ def test_fastsmc_no_hashing_matches_jax(panel, tmp_path):
     """No hashing: job 2 of 100 (449 pairs of the whole panel) in batches
     of 224, 224 and 1, decoded over the whole chromosome; the same
     records in the same order as the JAX package's."""
-    root, dq, data = panel
+    root, dq, data, jax_data = panel
 
-    def params(tag):
-        return DecodingParams.fastsmc_defaults(
+    def params(tag, cls=DecodingParams):
+        return cls.fastsmc_defaults(
             root, dq, str(tmp_path / tag), use_known_seed=True,
             hashing=False, jobs=100, job_ind=2, batch_size=224)
 
-    want = _records(JaxFastSMC(params("jax"), data=data, use_pallas=False)
-                    .run(verbose=False))
+    want = _records(JaxFastSMC(params("jax", JaxParams), data=jax_data,
+                               use_pallas=False).run(verbose=False))
     port = fastsmc_tpu_torch.FastSMC(params("port"), data=data, device="cpu")
     before = dict(kernels.LAUNCHES)
     got = _records(port.run(verbose=False))

@@ -15,21 +15,34 @@ and 5e-2 in sequence mode (chip_smoke.py's APPROX_ATOL, with the readings
 behind it); a few pairs' drift does not average out over these small pair
 counts, so the sums over P pairs are held at that atol * P against the
 plain version, and within 1e-5 * P against the kernel's own posterior
-output summed over pairs; turbo equals fast bit for bit."""
+output summed over pairs; turbo equals fast bit for bit. The alpha-wall
+probe's kernels: raw alpha within ALPHA_WALL_FWD_RTOL of the plain value
+at every element, the backward output within ALPHA_WALL_BWD_ATOL."""
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from fastsmc_tpu_torch.engine import kernels
+from fastsmc_tpu_torch.engine.oracle import DecodeContext
+from fastsmc_tpu_torch.io.decoding_quantities import DecodingQuantities
+from fastsmc_tpu_torch.probes import alpha_wall
+from fastsmc_tpu_torch.probes.biobank import make_panel, params_for
 
-from fastsmc_tpu.engine.oracle import DecodeContext
-from fastsmc_tpu.io.decoding_quantities import DecodingQuantities
+DQ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "n300.array.decodingQuantities.npz")
 
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5
 APPROX_ATOL = {"array": 5e-3, "sequence": 5e-2}
+# the alpha-wall probe's kernels against their plain versions, per pass:
+# bf16 operands, f32 sums in another order, the carry rounded to bf16 at
+# every site (chip_smoke.py's gates, with the readings behind them)
+ALPHA_WALL_FWD_RTOL = 1.6e-2
+ALPHA_WALL_BWD_ATOL = 2e-4
 
 
 @pytest.fixture(scope="module")
@@ -41,10 +54,8 @@ def cuda():
 @pytest.fixture(scope="module")
 def ctx(cuda):
     """1,024 founder-mosaic haplotypes x 6,400 sites, folded."""
-    from scripts.biobank_probe import REPO, make_panel, params_for
-    dq = DecodingQuantities.load_npz(
-        f"{REPO}/artifacts/n300.array.decodingQuantities.npz")
-    return DecodeContext.build(params_for(1024), make_panel(1024, seed=3), dq)
+    return DecodeContext.build(params_for(1024), make_panel(1024, seed=3),
+                               DecodingQuantities.load_npz(DQ))
 
 
 @pytest.fixture(scope="module")
@@ -55,13 +66,10 @@ def gpu(cuda, ctx):
 @pytest.fixture(scope="module")
 def seq_ctx(cuda):
     """The same panel in sequence mode."""
-    from scripts.biobank_probe import REPO, make_panel, params_for
-    dq = DecodingQuantities.load_npz(
-        f"{REPO}/artifacts/n300.array.decodingQuantities.npz")
     params = params_for(1024)
     params.decoding_mode = "sequence"
     return DecodeContext.build(params.finalize(), make_panel(1024, seed=3),
-                               dq)
+                               DecodingQuantities.load_npz(DQ))
 
 
 def _inputs(dec, t0, T, P, seed=0):
@@ -296,3 +304,34 @@ def test_turbo_equals_fast_on_the_card(cuda, ctx, seq_ctx, mode):
     b = turbo.decode_pairs(ha, hb, 500, 256, outs, 11)
     for name in a:
         assert torch.equal(a[name], b[name]), name
+
+
+# the alpha-wall probe's kernels at KC=128 (the only width they take), a
+# short window, and P=40 (dead lanes in the second 32-pair block)
+ALPHA_WALL_SHAPE = alpha_wall.Shape(KC=128, KA=72, S=8, P=40, T=64, G=5)
+
+
+@pytest.mark.parametrize("name", list(alpha_wall.VARIANTS))
+def test_alpha_wall_kernels_match_plain(cuda, name):
+    """Each probe variant's kernel against its plain version on the card:
+    alpha raw within ALPHA_WALL_FWD_RTOL of the plain value at every
+    element, the backward output within ALPHA_WALL_BWD_ATOL, one launch
+    each."""
+    shape = ALPHA_WALL_SHAPE
+    inp = alpha_wall.make_inputs(shape, "cuda", seed=4)
+    key = "alpha_wall_" + ("forward" if name.startswith("fwd")
+                           else "backward")
+    before = kernels.LAUNCHES[key]
+    got = alpha_wall.run_variant(name, inp, shape)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    want = alpha_wall.run_variant(name, inp, shape, plain=True)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    if name.startswith("fwd"):
+        torch.testing.assert_close(got, want, rtol=ALPHA_WALL_FWD_RTOL,
+                                   atol=0)
+    else:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=ALPHA_WALL_BWD_ATOL)

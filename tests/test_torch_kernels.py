@@ -5,7 +5,8 @@ BatchedDecoder, on the same panel, windows and hap pairs.
 Tolerance: atol 1e-5 on posteriors and sums (rtol 1e-5 on the posterior
 mean, whose values are in generations) -- f32 sums taken in another order
 in a K=69 product that is renormalised at every site. MAP states must be
-equal."""
+equal. Each side decodes from its own DecodeContext, built from the same
+files (test_torch_host.contexts)."""
 
 import numpy as np
 import pytest
@@ -16,12 +17,12 @@ from fastsmc_tpu.engine import segments as jseg
 from fastsmc_tpu.engine.hmm import BatchedDecoder as JaxBatchedDecoder
 from fastsmc_tpu.engine.kernels import BwdOutputs as JaxBwdOutputs
 from fastsmc_tpu.engine.kernels import PallasDecoder
-from fastsmc_tpu.engine.oracle import DecodeContext
-from fastsmc_tpu.io.haps import load_data
 
 from fastsmc_tpu_torch.engine import kernels
 from fastsmc_tpu_torch.engine.hmm import BatchedDecoder, bucket_len
 from fastsmc_tpu_torch.engine.tables import DecodeTables, padded_states
+
+from test_torch_host import contexts
 
 P = 8
 # (t0, T): two windows inside the 640-site panel, one running past its end
@@ -31,16 +32,21 @@ ALL = dict(posterior=True, posterior_sums=True, per_pair_mean=True,
 
 
 @pytest.fixture(scope="module")
-def ctx(synthetic_panel_root, n300_dq):
+def both(synthetic_panel_root):
+    """(JAX, port) DecodeContext of the synthetic panel."""
     root, dq_path, d = synthetic_panel_root
-    params = DecodingParams.fastsmc_defaults(root, dq_path, str(d / "tk"),
-                                             use_known_seed=True)
-    return DecodeContext.build(params, load_data(params), n300_dq)
+    return contexts(DecodingParams.fastsmc_defaults(
+        root, dq_path, str(d / "tk"), use_known_seed=True))
 
 
 @pytest.fixture(scope="module")
-def pallas(ctx):
-    return PallasDecoder(ctx, interpret=True)
+def ctx(both):
+    return both[1]
+
+
+@pytest.fixture(scope="module")
+def pallas(both):
+    return PallasDecoder(both[0], interpret=True)
 
 
 @pytest.fixture(scope="module")
@@ -81,9 +87,10 @@ def test_decode_pairs_matches_pallas_interpret(ctx, pallas, gpu, t0, T):
 
 
 @pytest.mark.parametrize("t0,T", WINDOWS)
-def test_batched_decoder_matches_jax(ctx, gpu, t0, T):
+def test_batched_decoder_matches_jax(both, ctx, gpu, t0, T):
     ha, hb = _pairs(7 * t0 + T)
-    want = np.asarray(JaxBatchedDecoder(ctx).decode_pairs(ha, hb, t0, T))
+    want = np.asarray(JaxBatchedDecoder(both[0]).decode_pairs(ha, hb, t0,
+                                                              T))
     spec = BatchedDecoder(ctx, "cpu").decode_pairs(ha, hb, t0, T)
     np.testing.assert_allclose(spec.numpy(), want, rtol=0, atol=1e-5)
     post = gpu.decode_pairs(ha, hb, t0, T)["posterior"]

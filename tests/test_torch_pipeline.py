@@ -1,6 +1,7 @@
 """The port's FastSMC pipeline on the CPU (plain versions of the kernels)
 against the JAX package: the same records (first 9 columns) in the same
-order, float columns to rtol 1e-4."""
+order, float columns to rtol 1e-4. Each side runs on its own
+DecodingParams, built from the same arguments."""
 
 import gzip
 
@@ -8,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from fastsmc_tpu.config import DecodingParams
+from fastsmc_tpu.config import DecodingParams as JaxParams
 
 import fastsmc_tpu_torch
 from fastsmc_tpu_torch.engine import kernels
@@ -57,8 +58,9 @@ def _assert_same_records(got, want):
     np.testing.assert_allclose(g, w, rtol=FLOAT_RTOL)
 
 
-def _tiny_params(root, repo_root, out):
-    return DecodingParams.fastsmc_defaults(
+def _tiny_params(root, repo_root, out,
+                 cls=fastsmc_tpu_torch.DecodingParams):
+    return cls.fastsmc_defaults(
         root, str(repo_root / "artifacts" / "n300.array.decodingQuantities.npz"),
         out, use_known_seed=True, min_m=0.5, batch_size=16)
 
@@ -67,7 +69,8 @@ def test_tiny_panel_matches_jax_pipeline(tiny_panel, repo_root, tmp_path):
     from fastsmc_tpu.pipelines.fastsmc import FastSMC as JaxFastSMC
 
     want = _records(JaxFastSMC(
-        _tiny_params(tiny_panel, repo_root, str(tmp_path / "jax")),
+        _tiny_params(tiny_panel, repo_root, str(tmp_path / "jax"),
+                     JaxParams),
         use_pallas="interpret", flush_group=2).run(verbose=False))
     port = fastsmc_tpu_torch.FastSMC(
         _tiny_params(tiny_panel, repo_root, str(tmp_path / "port")),

@@ -26,26 +26,31 @@ store alpha as bf16; in array mode they normalise the carry once per
   * block normalisation (array mode), on the plain versions in f32: the
     posterior equals per-site normalisation's to f32 rounding (atol
     1e-6).
+
+Each side reads the panel with its own loader and decodes from its own
+DecodeContext (test_torch_host.contexts).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fastsmc_tpu.config import DecodingParams
+from fastsmc_tpu.config import DecodingParams as JaxParams
 from fastsmc_tpu.engine import segments as jseg
 from fastsmc_tpu.engine.kernels import BwdOutputs as JaxBwdOutputs
 from fastsmc_tpu.engine.kernels import PallasDecoder
-from fastsmc_tpu.engine.oracle import DecodeContext
-from fastsmc_tpu.io.decoding_quantities import DecodingQuantities
-from fastsmc_tpu.io.haps import load_data
 from fastsmc_tpu.pipelines.fastsmc import FastSMC as JaxFastSMC
-from scripts.f1_vs_reference import f1_scores
 
 import fastsmc_tpu_torch
+from fastsmc_tpu_torch.config import DecodingParams
 from fastsmc_tpu_torch.engine import kernels
+from fastsmc_tpu_torch.engine.oracle import DecodeContext
 from fastsmc_tpu_torch.engine.tables import DecodeTables
+from fastsmc_tpu_torch.io.decoding_quantities import DecodingQuantities
+from fastsmc_tpu_torch.io.haps import load_data
 from fastsmc_tpu_torch.pipelines import asmc
+from fastsmc_tpu_torch.probes.f1 import f1_scores
+from test_torch_host import contexts
 from test_torch_pipeline import (_assert_same_records, _records,  # noqa: F401
                                  _tiny_params, tiny_panel)
 
@@ -80,8 +85,24 @@ def _ctx(example, mode):
 
 
 @pytest.fixture(scope="module", params=["array", "sequence"])
-def ctx(request, example):
-    return _ctx(example, request.param)
+def both(request, example):
+    """(JAX, port) DecodeContext of the example panel in one mode."""
+    root, dq, _ = example
+    return contexts(
+        JaxParams.asmc(root, dq, "unused", decoding_mode=request.param,
+                       use_known_seed=True),
+        JaxParams.asmc(root, dq, "unused", fastsmc=True,
+                       use_known_seed=True))
+
+
+@pytest.fixture(scope="module")
+def jctx(both):
+    return both[0]
+
+
+@pytest.fixture(scope="module")
+def ctx(both):
+    return both[1]
 
 
 def _pairs(seed, P, H=300):
@@ -112,7 +133,7 @@ def test_fast_equals_turbo(ctx):
     assert torch.equal(*alpha)
 
 
-def test_turbo_matches_jax_turbo_interpret(ctx):
+def test_turbo_matches_jax_turbo_interpret(jctx, ctx):
     """All six outputs against PallasDecoder(precision="turbo") in
     interpret mode (the tolerance is in the module docstring)."""
     ha, hb = _pairs(1, 8)
@@ -120,7 +141,8 @@ def test_turbo_matches_jax_turbo_interpret(ctx):
     T = 256 if not ctx.params.decoding_sequence else 64
     got = kernels.GpuDecoder(ctx, "cpu", "turbo").decode_pairs(
         ha, hb, 2000, T, kernels.BwdOutputs(**ALL), st)
-    want = PallasDecoder(ctx, interpret=True, precision="turbo").decode_pairs(
+    want = PallasDecoder(jctx, interpret=True,
+                         precision="turbo").decode_pairs(
         ha, hb, 2000, T, JaxBwdOutputs(**ALL), st)
     for name in ("posterior", "threshold_sums"):
         d = np.abs(got[name].numpy() - np.asarray(want[name]))
@@ -184,10 +206,10 @@ def test_block_norm_matches_site_norm(example):
                                   ops_f, mask, seq_f, norm_block=True)
 
 
-def test_tables_from_numpy_turbo(ctx):
+def test_tables_from_numpy_turbo(jctx, ctx):
     """The JAX PallasDecoder's turbo tables (bf16 operators) through
     from_numpy: bf16 operators equal to from_context's, the same decode."""
-    pallas = PallasDecoder(ctx, interpret=True, precision="turbo")
+    pallas = PallasDecoder(jctx, interpret=True, precision="turbo")
     d = {k: np.asarray(v) for k, v in pallas._tables().items()}
     d.update(gap_op=pallas.gap_op, identity_op=pallas._identity_op,
              hap_bits=np.asarray(pallas.hap_bits),
@@ -227,7 +249,8 @@ def test_fastsmc_tiny_panel_matches_jax_profiles(tiny_panel, repo_root,
     want = {}
     for profile in ("fast", "turbo"):
         want[profile] = JaxFastSMC(
-            _tiny_params(tiny_panel, repo_root, str(tmp_path / f"j{profile}")),
+            _tiny_params(tiny_panel, repo_root, str(tmp_path / f"j{profile}"),
+                         JaxParams),
             use_pallas="interpret", flush_group=2,
             decode_profile=profile).run(verbose=False)
     got = {}

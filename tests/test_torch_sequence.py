@@ -8,7 +8,9 @@ sums taken in another order in a K=69 product renormalised at every
 site; against the scalar oracle atol 2e-4 (the bound of
 tests/test_regression.py:119); per-pair means rtol 1e-5 (they are in
 generations); MAP states equal except at ties within 1e-5; FastSMC records
-equal in their first 9 columns, floats rtol 1e-4.
+equal in their first 9 columns, floats rtol 1e-4. Each side reads the
+panel with its own loader and decodes from its own DecodeContext
+(test_torch_host.contexts).
 
 The two goldens were made by the JAX package on the CPU, from the
 repository root, with::
@@ -44,21 +46,23 @@ import numpy as np
 import pytest
 import torch
 
-from fastsmc_tpu.config import DecodingParams
+from fastsmc_tpu.config import DecodingParams as JaxParams
 from fastsmc_tpu.engine import segments as jseg
 from fastsmc_tpu.engine.hmm import BatchedDecoder as JaxBatchedDecoder
 from fastsmc_tpu.engine.kernels import BwdOutputs as JaxBwdOutputs
 from fastsmc_tpu.engine.kernels import PallasDecoder
-from fastsmc_tpu.engine.oracle import DecodeContext, decode_pair
-from fastsmc_tpu.io.decoding_quantities import DecodingQuantities
-from fastsmc_tpu.io.haps import load_data
+from fastsmc_tpu.engine.oracle import decode_pair
+from fastsmc_tpu.io.haps import load_data as jax_load_data
 from fastsmc_tpu.pipelines.asmc import ASMC as JaxASMC
 from fastsmc_tpu.pipelines.fastsmc import FastSMC as JaxFastSMC
 
 import fastsmc_tpu_torch
+from fastsmc_tpu_torch.config import DecodingParams
 from fastsmc_tpu_torch.engine import kernels
 from fastsmc_tpu_torch.engine.hmm import BatchedDecoder
 from fastsmc_tpu_torch.engine.tables import DecodeTables
+from fastsmc_tpu_torch.io.haps import load_data
+from test_torch_host import contexts
 from test_torch_pipeline import (_assert_same_records, _records,  # noqa: F401
                                  _tiny_params, tiny_panel)
 
@@ -82,7 +86,7 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def example(repo_root):
     """The example panel (300 haplotypes x 6,759 sites, its map in FastSMC
-    format), loaded whole."""
+    format), loaded whole by the port."""
     root = str(repo_root / "artifacts" / "panels" / "example_array"
                / "example")
     dq = str(repo_root / "artifacts" / "n300.array.decodingQuantities.npz")
@@ -91,12 +95,24 @@ def example(repo_root):
 
 
 @pytest.fixture(scope="module")
-def ctx(example):
-    root, dq, data = example
-    params = DecodingParams.asmc(root, dq, "unused",
-                                 decoding_mode="sequence",
-                                 use_known_seed=True)
-    return DecodeContext.build(params, data, DecodingQuantities.load(dq))
+def both(example):
+    """(JAX, port) sequence-mode DecodeContext of the example panel."""
+    root, dq, _ = example
+    return contexts(
+        JaxParams.asmc(root, dq, "unused", decoding_mode="sequence",
+                       use_known_seed=True),
+        JaxParams.asmc(root, dq, "unused", fastsmc=True,
+                       use_known_seed=True))
+
+
+@pytest.fixture(scope="module")
+def jctx(both):
+    return both[0]
+
+
+@pytest.fixture(scope="module")
+def ctx(both):
+    return both[1]
 
 
 def _pairs(seed, P, H=300):
@@ -109,11 +125,11 @@ def _pairs(seed, P, H=300):
 # (t0, T): a 1,024-site window inside the 6,759-site panel, and one
 # running past its end
 @pytest.mark.parametrize("t0,T", [(2000, 1024), (6700, 128)])
-def test_plain_versions_match_jax_and_oracle(ctx, t0, T):
+def test_plain_versions_match_jax_and_oracle(jctx, ctx, t0, T):
     """The plain BatchedDecoder and the kernels' plain versions against JAX
-    BatchedDecoder (1e-5) and the scalar oracle (2e-4)."""
+    BatchedDecoder (1e-5) and the JAX package's scalar oracle (2e-4)."""
     ha, hb = _pairs(t0, 4)
-    want = np.asarray(JaxBatchedDecoder(ctx).decode_pairs(ha, hb, t0, T))
+    want = np.asarray(JaxBatchedDecoder(jctx).decode_pairs(ha, hb, t0, T))
     spec = BatchedDecoder(ctx, "cpu").decode_pairs(ha, hb, t0, T).numpy()
     np.testing.assert_allclose(spec, want, rtol=0, atol=1e-5)
     post = kernels.GpuDecoder(ctx, "cpu").decode_pairs(
@@ -121,19 +137,19 @@ def test_plain_versions_match_jax_and_oracle(ctx, t0, T):
     np.testing.assert_allclose(post, want, rtol=0, atol=1e-5)
     real = min(T, ctx.data.sites - t0)
     for i in range(2):
-        ref = decode_pair(ctx, int(ha[i]), int(hb[i]), t0, t0 + real)
+        ref = decode_pair(jctx, int(ha[i]), int(hb[i]), t0, t0 + real)
         np.testing.assert_allclose(post[:real, :, i].T, ref, rtol=0,
                                    atol=2e-4)
 
 
-def test_decode_pairs_matches_pallas_interpret(ctx):
+def test_decode_pairs_matches_pallas_interpret(jctx, ctx):
     """All six outputs of the plain versions against the Pallas kernels'
     sequence branch in interpret mode."""
     ha, hb = _pairs(1, 8)
     st = jseg.state_threshold(ctx.dq.discretization, 50, ctx.dq.states)
     got = kernels.GpuDecoder(ctx, "cpu").decode_pairs(
         ha, hb, 3000, 64, kernels.BwdOutputs(**ALL), st)
-    want = PallasDecoder(ctx, interpret=True).decode_pairs(
+    want = PallasDecoder(jctx, interpret=True).decode_pairs(
         ha, hb, 3000, 64, JaxBwdOutputs(**ALL), st)
     for name in ALL:
         g, w = got[name].numpy(), np.asarray(want[name])
@@ -146,10 +162,10 @@ def test_decode_pairs_matches_pallas_interpret(ctx):
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=name)
 
 
-def test_tables_from_numpy_equal_from_context(ctx):
+def test_tables_from_numpy_equal_from_context(jctx, ctx):
     """The JAX PallasDecoder's sequence-mode tables through from_numpy give
     from_context's tables, and the same decode."""
-    pallas = PallasDecoder(ctx, interpret=True)
+    pallas = PallasDecoder(jctx, interpret=True)
     d = {k: np.asarray(v) for k, v in pallas._tables().items()}
     d.update(gap_op=pallas.gap_op, identity_op=pallas._identity_op,
              hap_bits=np.asarray(pallas.hap_bits),
@@ -203,12 +219,13 @@ def test_fastsmc_tiny_panel_matches_jax_fused(tiny_panel, repo_root,
                                               tmp_path):
     """FastSMC in sequence mode against the JAX package's fused decode +
     extract path with the Pallas kernels' sequence branch (interpret)."""
-    def params(tag):
-        p = _tiny_params(tiny_panel, repo_root, str(tmp_path / tag))
+    def params(tag, cls=DecodingParams):
+        p = _tiny_params(tiny_panel, repo_root, str(tmp_path / tag), cls)
         p.decoding_mode = "sequence"
         return p.finalize()
 
-    want = _records(JaxFastSMC(params("jax"), use_pallas="interpret",
+    want = _records(JaxFastSMC(params("jax", JaxParams),
+                               use_pallas="interpret",
                                flush_group=2).run(verbose=False))
     port = fastsmc_tpu_torch.FastSMC(params("port"), device="cpu")
     assert port.decoder.sequence
@@ -219,19 +236,25 @@ def test_fastsmc_tiny_panel_matches_jax_fused(tiny_panel, repo_root,
 
 @pytest.fixture(scope="module")
 def synthetic(synthetic_panel_root):
+    """The synthetic panel loaded whole by the port and by the JAX
+    package."""
     root, dq, d = synthetic_panel_root
-    return root, dq, load_data(DecodingParams.asmc(
-        root, dq, str(d / "load"), fastsmc=True, use_known_seed=True))
+    args = (root, dq, str(d / "load"))
+    return (root, dq,
+            load_data(DecodingParams.asmc(*args, fastsmc=True,
+                                          use_known_seed=True)),
+            jax_load_data(JaxParams.asmc(*args, fastsmc=True,
+                                         use_known_seed=True)))
 
 
 def _asmc_pair(synthetic, out, **kw):
-    root, dq, data = synthetic
+    root, dq, data, jax_data = synthetic
     kw.update(decoding_mode="sequence", use_known_seed=True)
     port = fastsmc_tpu_torch.ASMC(
         DecodingParams.asmc(root, dq, str(out / "port"), **kw), data=data,
         device="cpu", batch_size=64)
-    ref = JaxASMC(DecodingParams.asmc(root, dq, str(out / "jax"), **kw),
-                  data=data, use_pallas=False, batch_size=64)
+    ref = JaxASMC(JaxParams.asmc(root, dq, str(out / "jax"), **kw),
+                  data=jax_data, use_pallas=False, batch_size=64)
     return port, ref
 
 

@@ -1,5 +1,6 @@
-"""The port's IBD text writer (fastsmc_tpu_torch.writers) and the writer
-counters its FastSMC carries across checkpoints."""
+"""The port's IBD text writer (fastsmc_tpu_torch.io.writers, with the
+writer-thread repair) and the writer counters its FastSMC carries across
+checkpoints."""
 
 import gzip
 import threading
@@ -7,12 +8,12 @@ import time
 
 import numpy as np
 
-from fastsmc_tpu import native
-from fastsmc_tpu.config import DecodingParams
 from fastsmc_tpu.io import writers as jax_writers
 
 import fastsmc_tpu_torch
-from fastsmc_tpu_torch.writers import IbdTextWriter
+from fastsmc_tpu_torch import native
+from fastsmc_tpu_torch.config import DecodingParams
+from fastsmc_tpu_torch.io.writers import IbdTextWriter
 
 
 def _block(n, seed):
@@ -69,7 +70,8 @@ def test_formatter_failure_makes_close_raise(tmp_path, monkeypatch):
 
 
 def test_writer_output_equals_jax_writer(tmp_path):
-    """On the normal path the subclass writes the JAX package's bytes."""
+    """On the normal path the port's writer writes the JAX package's
+    bytes."""
     paths = []
     for cls in (IbdTextWriter, jax_writers.IbdTextWriter):
         path = tmp_path / f"{cls.__module__}.ibd.gz"
