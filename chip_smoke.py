@@ -14,7 +14,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      events, per backward output; then the forward kernel and the backward
      kernel with the two sums at the ASMC scale leg's batches (the whole
      chromosome's T=8192 window, P=8192 and the last batch's P=3137),
-     against their plain versions;
+     against their plain versions; batch invariance: 3,137 pairs as the
+     first of an 8,192-pair backward launch and alone give the same bits,
+     array and sequence mode, exact and fast;
   4. FastSMC golden leg: FastSMC(...).run() on artifacts/panels/
      example_array must reproduce the record keys (first 9 columns) of
      tests/fixtures/example_array.golden.FastSMC.ibd.gz in order, with
@@ -32,7 +34,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      the decode_pairs API, which reads the kernel's posterior output;
   8. ASMC scale leg: the scale panel, jobs=1000, job 1 (134,209 pairs),
      batch 8192, posterior sums and major/minor sums, run twice with
-     byte-identical .sumOverPairs.gz outputs;
+     byte-identical .sumOverPairs.gz outputs; then once more under
+     torch.profiler (device busy and idle share, device time by kernel);
   9. FastSMC without hashing: the example panel, jobs=25, job 1 (1,794
      pairs); and jobs=400, job 1 (112 pairs) on the card against the plain
      versions on the CPU: the same records, floats within relative 1e-4.
@@ -61,9 +64,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      the legs of 4.-12.): its six variants' kernels against their plain
      versions at the probe's shape (T=4096, P=8192, KC=128, KA=72, S=8)
      and with P=8187 (raw alpha within ALPHA_WALL_FWD_RTOL, the backward
-     output within ALPHA_WALL_BWD_ATOL; two wrongly normalising forwards
-     must miss the alpha gate), then the probe's main(): the six median
-     times and the alpha write and read costs.
+     output within ALPHA_WALL_BWD_ATOL, its raw carry after site 1 within
+     ALPHA_WALL_CARRY_RTOL; two wrongly normalising forwards must miss the
+     alpha gate, a wrongly normalising backward the carry gate), then the
+     probe's main(): the six median times and the alpha write and read
+     costs.
 Each leg clears the launch counts before it runs and fails unless every
 kernel of its path was launched. The line before the last lists the
 kernels as JSON, each with its time, its plain version's, its bound on the
@@ -74,11 +79,20 @@ card's name and power limit. The last line is {"ok": true, "device":
 {...}}. The run imports nothing of JAX or of the JAX package. Outputs go to
 build/chip_smoke/ in the checkout.
 
-    python3 chip_smoke.py --ab-parent DIR
+Phase 10 also times the fast array kernels at the fast ASMC leg's batch
+(FAST_CAP_PAIRS pairs, T=8192), kernel only.
 
-adds an A/B of the exact array kernels against those of another checkout
-at DIR (e.g. the parent commit), each called through its own checkout's
-wrappers, in turns, three times each.
+    python3 chip_smoke.py --ab-parent DIR [--ab-only]
+
+adds, before phase 3, an A/B of the decode kernels against those of
+another checkout at DIR (e.g. a `git archive` of the parent commit), each
+called through its own checkout's wrappers: the backward in array and
+sequence mode, exact and fast, at T=1024 (all six outputs, and FastSMC's
+two) and at the ASMC shape (T=8192, both sums, P=8192 and 3137), every
+output equal to the parent's bit for bit (the sums as their per-group
+partials), times in turns three times each; the exact forward as the
+control; both builds' ptxas lines and SASS counts. --ab-only stops after
+the A/B and the batch-invariance check.
 """
 
 from __future__ import annotations
@@ -162,6 +176,13 @@ F1_MIN = 0.99
 # that divides by the stored rows' sum reads 1.18.
 ALPHA_WALL_FWD_RTOL = 1.6e-2
 ALPHA_WALL_BWD_ATOL = 2e-4
+# the backward's output is renormalised per column and cannot show where
+# the pass normalises; its raw carry after ALPHA_WALL_CARRY_SITE (inside a
+# block: the backward normalises at r % S == 0) can. Held element by
+# element, relative to the plain value, at two bf16 steps; a backward that
+# normalises at every site under block normalisation must miss it.
+ALPHA_WALL_CARRY_RTOL = 1.6e-2
+ALPHA_WALL_CARRY_SITE = 1
 # the card's published peaks (H100 SXM, dense, at 700 W): HBM bytes/s and
 # FLOP/s by operand type. A
 # bound is the larger of bytes / MEM_BW and FLOP / PEAK[type], counting
@@ -483,6 +504,50 @@ def time_asmc_shape(dec, kernels, res, rng):
         del alpha, got, want
 
 
+# the fast ASMC scale leg's batch: the cap ASMC sets for a bf16 alpha at
+# T=8192 on this card's 80 GB (phase 12's leg)
+FAST_CAP_PAIRS = 27296
+
+
+def time_fast_cap(decs, kernels, res) -> None:
+    """The fast array kernels at the fast ASMC scale leg's batch (T=8192,
+    FAST_CAP_PAIRS pairs, both sums): kernel times only, median of 3, no
+    plain version at this size; each forward's alpha is freed before the
+    next (one takes 32 GB)."""
+    dec = decs["array", "fast"]
+    t = dec.tables
+    T, P = 8192, FAST_CAP_PAIRS
+    obs, em, ops_f, ops_b, mask, _, _ = window_inputs(
+        dec, *random_pairs(np.random.default_rng(11), t.hap_bits.shape[0],
+                           P), 0, T)
+    outs = kernels.BwdOutputs(posterior=False, posterior_sums=True,
+                              major_minor_sums=True)
+    fname, bname = decode_kernels(kernels, "array", "fast")
+
+    def fwd():
+        return kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, None,
+                               "fast")
+
+    res[fname]["asmc_cap_ms"] = median_ms(fwd, 3)
+    alpha = fwd()
+
+    def bwd():
+        return kernels.backward_combine(t.Mb, em, obs, alpha, ops_b, mask,
+                                        dec.K, 0, outs, None, None, "fast")
+
+    res[bname]["asmc_cap_ms"] = median_ms(bwd, 3)
+    for name, o in ((fname, None), (bname, outs)):
+        res[name]["asmc_cap_bound_ms"] = decode_bound(
+            "forward" if o is None else "backward", T, P, dec.K,
+            t.Mf.shape[0], False, "fast", o)["bound_ms"]
+    log(f"[variants] fast array kernels at the fast ASMC leg's batch (T={T},"
+        f" P={P}, both sums), median ms of 3: forward "
+        f"{res[fname]['asmc_cap_ms']:.2f}, backward+reduce "
+        f"{res[bname]['asmc_cap_ms']:.2f}")
+    del alpha
+    torch.cuda.empty_cache()
+
+
 def random_pairs(rng, H: int, P: int):
     ha = rng.integers(0, H, P)
     return ha, (ha + 1 + rng.integers(0, H - 1, P)) % H
@@ -703,9 +768,12 @@ def alpha_wall_phase(kernels):
     variants against its plain version on the card at the probe's shape
     (P=8192) and with dead lanes (P=8187): alpha raw, within
     ALPHA_WALL_FWD_RTOL of the plain value at every element, the backward
-    output within ALPHA_WALL_BWD_ATOL. At P=8192, two forwards that
-    normalise in the wrong place (at every site under block
-    normalisation; by the stored rows' sum) must miss that gate. Then the
+    output within ALPHA_WALL_BWD_ATOL and its raw carry after
+    ALPHA_WALL_CARRY_SITE within ALPHA_WALL_CARRY_RTOL. At P=8192, two
+    forwards that normalise in the wrong place (at every site under block
+    normalisation; by the stored rows' sum) must miss the alpha gate, and a
+    backward that normalises at every site under block normalisation the
+    carry gate. Then the
     probe's main() with the launch counts cleared, which times the six
     variants (median of 20 passes, CUDA events) and the alpha write and
     read costs. Returns (per-kernel rows, the probe's launches)."""
@@ -715,26 +783,41 @@ def alpha_wall_phase(kernels):
     res = {f"alpha_wall_{k}": {"max_abs_err": 0.0, "max_rel_err": 0.0,
                                "variants": {}}
            for k in ("forward", "backward")}
-    witness = {}
+    witness, carry_witness, carries = {}, {}, {}
+    site = ALPHA_WALL_CARRY_SITE
     for P in (shape.P, 8187):
         sh = dataclasses.replace(shape, P=P)
         inp = aw.make_inputs(sh, DEVICE)
         every_site = None
         for name, (kind, _, _) in aw.VARIANTS.items():
-            got = aw.run_variant(name, inp, sh)
+            carry_site = site if kind == "bwd" else None
+            got = aw.run_variant(name, inp, sh, carry_site=carry_site)
             plain_ms, want = once_ms(
-                lambda: aw.run_variant(name, inp, sh, plain=True))
+                lambda: aw.run_variant(name, inp, sh, plain=True,
+                                       carry_site=carry_site))
+            carry_rel = 0.0
+            if kind == "bwd":
+                (got, got_carry), (want, want_carry) = got, want
+                carry_rel = aw.max_errors(got_carry, want_carry)[1]
+                if P == shape.P:
+                    carries[name] = want_carry
+                del got_carry, want_carry
             err, rel = aw.max_errors(got, want)
             finite = bool(torch.isfinite(got.float()).all())
             del got
             gate_err, gate = (rel, ALPHA_WALL_FWD_RTOL) if kind == "fwd" \
                 else (err, ALPHA_WALL_BWD_ATOL)
             log(f"[alpha-wall] {name} P={P}: max|diff| against the plain "
-                f"version {err:.3g}, relative {rel:.3g}, finite={finite}, "
-                f"plain {plain_ms:.1f} ms")
-            if not finite or gate_err > gate:
+                f"version {err:.3g}, relative {rel:.3g}"
+                + (f", raw carry after site {site} relative {carry_rel:.3g}"
+                   if kind == "bwd" else "")
+                + f", finite={finite}, plain {plain_ms:.1f} ms")
+            if not finite or gate_err > gate \
+                    or carry_rel > ALPHA_WALL_CARRY_RTOL:
                 raise AssertionError(f"alpha-wall {name} at P={P}: {err} "
-                                     f"(relative {rel}; gate {gate})")
+                                     f"(relative {rel}; gate {gate}), carry "
+                                     f"{carry_rel} (gate "
+                                     f"{ALPHA_WALL_CARRY_RTOL})")
             if P == shape.P and name == "fwd_store":
                 every_site = want
                 witness["divides by the stored rows' sum"] = \
@@ -751,16 +834,29 @@ def alpha_wall_phase(kernels):
             for r in (row, v):
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 r["max_rel_err"] = max(r["max_rel_err"], rel)
+                if kind == "bwd":
+                    r["carry_max_rel_err"] = max(
+                        r.get("carry_max_rel_err", 0.0), carry_rel)
             if P == shape.P:
                 v.update(plain_ms=plain_ms, **alpha_wall_bound(sh, name))
         del inp
         torch.cuda.empty_cache()
+        if P == shape.P:
+            carry_witness["ignores NORM_BLOCK"] = aw.max_errors(
+                carries.pop("bwd_read"), carries.pop("bwd_norm_block"))[1]
+            carries.clear()
     log("[alpha-wall] wrong forwards against the plain versions, relative "
-        f"(gate {ALPHA_WALL_FWD_RTOL}): {json.dumps(witness)}")
+        f"(gate {ALPHA_WALL_FWD_RTOL}): {json.dumps(witness)}; a wrong "
+        f"backward's carry after site {site} (gate {ALPHA_WALL_CARRY_RTOL})"
+        f": {json.dumps(carry_witness)}")
     if min(witness.values()) <= ALPHA_WALL_FWD_RTOL:
         raise AssertionError(f"the alpha gate passes a wrong forward: "
                              f"{witness}")
+    if carry_witness["ignores NORM_BLOCK"] <= ALPHA_WALL_CARRY_RTOL:
+        raise AssertionError(f"the carry gate passes a wrong backward: "
+                             f"{carry_witness}")
     res["alpha_wall_forward"]["wrong_forwards_rel"] = witness
+    res["alpha_wall_backward"]["wrong_backward_carry_rel"] = carry_witness
     probe, launches = run_leg(
         kernels, "alpha-wall probe",
         ("alpha_wall_forward", "alpha_wall_backward"),
@@ -783,83 +879,162 @@ def alpha_wall_phase(kernels):
     return res, launches
 
 
-def ptxas_registers(text: str, tag: str):
-    """(kernel name up to its parameters, "Used N registers ...") of each
-    entry function in ptxas' log whose name holds ``tag``."""
-    out, fn = [], None
-    for line in text.splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1]
-        elif fn and tag in fn and "registers" in line:
-            name = fn.split("kernel", 1)[-1].split("EEv")[0]
-            out.append((name, line.split(":", 1)[1].strip()))
-    return out
+# the A/B's backward cases (mode, profile, t0, T, P, outputs): each branch
+# of the backward kernel at the main-path window with all six outputs (the
+# sums over pairs as their per-group partials) and with FastSMC's two, and
+# at the ASMC scale leg's batches (P=8192 and the last batch's 3,137) with
+# both sums. Turbo runs fast's instantiation (phase 10 holds it bit-equal).
+AB_MODES = (("array", "exact"), ("sequence", "exact"), ("array", "fast"),
+            ("sequence", "fast"))
+AB_SHAPES = ((2048, 1024, 8192, "all"), (2048, 1024, 8192, "fastsmc"),
+             (0, 8192, 8192, "sums"), (0, 8192, 3137, "sums"))
 
 
-def ab_parent(parent: str, dec, kernels, this_log: str,
-              reps: int = 3) -> dict:
-    """The exact array kernels of this tree against those of the checkout
-    at ``parent``, each called through its own checkout's wrappers
+def ab_outputs(k, which: str):
+    if which == "all":
+        return k.BwdOutputs(**{n: True for n in k.KERNEL_OUTPUTS})
+    if which == "fastsmc":
+        return k.BwdOutputs(posterior=True, threshold_sums=True)
+    return k.BwdOutputs(posterior=False, posterior_sums=True,
+                        major_minor_sums=True)
+
+
+def unreduced(call, sides):
+    """``call()`` with each side's ``block_reduce`` returning its input, so
+    that the backward wrappers hand back the kernel's per-group partials."""
+    saved = {k: k.block_reduce for k in sides}
+    for k in sides:
+        k.block_reduce = lambda part: part
+    try:
+        return call()
+    finally:
+        for k, f in saved.items():
+            k.block_reduce = f
+
+
+def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
+    """This tree's decode kernels against those of the checkout at
+    ``parent``, each called through its own checkout's wrappers
     (``kernels.forward`` / ``backward_combine``, the parent's package
-    loaded under another name), on the same inputs (T=1024, P=8192):
-    forward, backward with the FastSMC outputs (posterior + threshold sums)
-    and backward with the two ASMC sums and their reduction. Median of 10
-    calls a side, the sides in turns (parent, this; this, parent; ...),
-    ``reps`` times each. Both must give the same bits. Logs both builds'
-    ptxas registers for the exact array kernels (``this_log``: this tree's
-    build log)."""
+    loaded under another name), on the same inputs: the backward in every
+    case of AB_MODES x AB_SHAPES, and the exact array forward at T=1024 and
+    T=8192 (P=8192) as the control, whose time should not move. Every
+    output, the sums' per-group partials included, must equal the parent's
+    bit for bit. Median of 10 calls a side at T=1024 and of 3 at T=8192,
+    the sides in turns (parent, this; this, parent; ...), ``reps`` times
+    each. Logs both builds' ptxas lines and SASS counts
+    (fastsmc_tpu_torch.probes.sass) for the backward instantiations at
+    this model's K."""
     import importlib
     import types
+    from fastsmc_tpu_torch.probes import sass
     # a parent from before the port owned its host modules imports
     # fastsmc_tpu, whose __init__ imports JAX unless this is set
     os.environ.setdefault("FASTSMC_TPU_NO_CACHE", "1")
     pkg = types.ModuleType("parent_port")
     pkg.__path__ = [os.path.join(parent, "fastsmc_tpu_torch")]
     sys.modules[pkg.__name__] = pkg
-    info = importlib.import_module("parent_port.engine._build").build()
+    pinfo = importlib.import_module("parent_port.engine._build").build()
     pk = importlib.import_module("parent_port.engine.kernels")
-    log(f"[a/b] parent library built in {info.seconds:.1f} s")
-    tag = f"_kernelILi{dec.tables.KP // 8}E"
-    for side, text in (("parent", info.log), ("this", this_log)):
-        for fn, regs in ptxas_registers(text, tag):
-            if side == "parent" or fn.endswith("Lb0ELb0E"):  # exact array
-                log(f"[a/b] {side}: {fn}: {regs}")
-    t = dec.tables
-    T, P = 1024, 8192
-    obs, em, ops_f, ops_b, mask = dec.prologue(
-        *random_pairs(np.random.default_rng(5), t.hap_bits.shape[0], P),
-        2048, T)
-    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask)
-    calls = {
-        "forward": lambda k: {"alpha": k.forward(t.Mf, em, obs, t.isp,
-                                                 ops_f, mask)},
-        "backward (posterior, threshold sums)": lambda k: k.backward_combine(
-            t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11,
-            k.BwdOutputs(posterior=True, threshold_sums=True)),
-        "backward (posterior sums, major/minor sums)":
-            lambda k: k.backward_combine(
-                t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11,
-                k.BwdOutputs(posterior=False, posterior_sums=True,
-                             major_minor_sums=True))}
+    log(f"[a/b] parent library built in {pinfo.seconds:.1f} s")
+    rpw = decs["array", "exact"].tables.KP // 8
+    for side, bi in (("parent", pinfo), ("this", info)):
+        for fn, r in sass.sass_report(bi.path, bi.log, "hmm_backward",
+                                      rpw).items():
+            log(f"[a/b] {side}: {fn}: ptxas {r['ptxas']}; SASS total "
+                f"{json.dumps(r['total'])}; densest loop "
+                f"{json.dumps(r['densest_loop'])}")
     sides = {"parent": pk, "this": kernels}
     res = {}
-    for what, call in calls.items():
-        a, b = (call(k) for k in sides.values())
-        if a.keys() != b.keys() or not all(torch.equal(a[n], b[n])
-                                           for n in a):
-            raise AssertionError(f"a/b: {what} differs from the parent's "
-                                 "bits")
-        del a, b
+
+    def turns(what, call, n):
         times = {"parent": [], "this": []}
         for r in range(reps):
             order = ("parent", "this") if r % 2 == 0 else ("this", "parent")
             for side in order:
-                times[side].append(median_ms(
-                    lambda: call(sides[side]), 10))
+                times[side].append(median_ms(lambda: call(sides[side]), n))
         res[what] = times
-        log(f"[a/b] {what}, T={T} P={P}, median ms of 10 per turn, in "
-            f"turns: {json.dumps(times)}; outputs equal bit for bit")
+        log(f"[a/b] {what}, median ms of {n} per turn, in turns: "
+            f"{json.dumps(times)}; outputs equal bit for bit")
+
+    def same_bits(what, a, b):
+        if a.keys() != b.keys() or not all(torch.equal(a[n], b[n])
+                                           for n in a):
+            raise AssertionError(f"a/b: {what} differs from the parent's "
+                                 "bits")
+
+    rng = np.random.default_rng(5)
+    for mode, profile in AB_MODES:
+        dec = decs[mode, profile]
+        t = dec.tables
+        H = t.hap_bits.shape[0]
+        for t0, T, P, which in AB_SHAPES:
+            obs, em, ops_f, ops_b, mask, seq_f, seq_b = window_inputs(
+                dec, *random_pairs(rng, H, P), t0, T)
+            alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                                    profile)
+            what = f"{mode} {profile} backward ({which}), T={T} P={P}"
+
+            def call(k, which=which):
+                return k.backward_combine(
+                    t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11,
+                    ab_outputs(k, which), t.exp_times, seq_b, profile)
+
+            a, b = unreduced(lambda: [call(k) for k in sides.values()],
+                             sides.values())
+            same_bits(what, a, b)
+            del a, b
+            turns(what, call, 10 if T <= 1024 else 3)
+            if (mode, profile) == ("array", "exact") and which != "all" \
+                    and P == 8192:
+                what = f"array exact forward (control), T={T} P={P}"
+
+                def fwd(k):
+                    return {"alpha": k.forward(t.Mf, em, obs, t.isp, ops_f,
+                                               mask)}
+
+                same_bits(what, *(fwd(k) for k in sides.values()))
+                turns(what, fwd, 10 if T <= 1024 else 3)
+            del alpha
+            torch.cuda.empty_cache()
     return res
+
+
+def batch_invariance(decs, kernels, T: int = 1024, P: int = 8192,
+                     n: int = 3137) -> None:
+    """The same ``n`` pairs as the first ``n`` of a P-pair backward launch
+    and alone: their posterior, threshold sums, means and MAP states equal
+    bit for bit, in array and sequence mode, exact and fast, on one
+    alpha."""
+    rng = np.random.default_rng(9)
+    per_pair = ("posterior", "threshold_sums", "per_pair_mean",
+                "per_pair_map")
+    outs = kernels.BwdOutputs(**{k: k in per_pair
+                                 for k in kernels.KERNEL_OUTPUTS})
+    for mode, profile in AB_MODES:
+        dec = decs[mode, profile]
+        t = dec.tables
+        obs, em, ops_f, ops_b, mask, seq_f, seq_b = window_inputs(
+            dec, *random_pairs(rng, t.hap_bits.shape[0], P), 2048, T)
+        alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                                profile)
+
+        def bwd(obs, alpha):
+            return kernels.backward_combine(
+                t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11, outs,
+                t.exp_times, seq_b, profile)
+
+        full = bwd(obs, alpha)
+        alone = bwd(obs[..., :n].contiguous(), alpha[..., :n].contiguous())
+        same = {k: torch.equal(full[k][..., :n], alone[k]) for k in per_pair}
+        log(f"[kernels] batch invariance, {mode} {profile}: pairs 0..{n - 1}"
+            f" of a {P}-pair launch and alone, T={T}, bit-equal: "
+            f"{json.dumps(same)}")
+        if not all(same.values()):
+            raise AssertionError(f"batch invariance ({mode}, {profile}): "
+                                 f"{same}")
+        del full, alone, alpha
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1199,6 +1374,53 @@ def asmc_scale_leg(ASMC, DecodingParams, kernels, data, mode="array",
     return runs[1]["launches"], sums[1], runs[1]
 
 
+def profile_asmc_leg(ASMC, DecodingParams, data) -> dict:
+    """The ASMC scale leg (array, exact, batch 8192) once more, warm, under
+    torch.profiler: the wall, the device's busy time (the union of its
+    kernels' and copies' intervals) and idle share, and device time by
+    kernel group. Logs {} when the profiler saw no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    params = DecodingParams.asmc(
+        OUT, DQ, os.path.join(OUT, "asmc_profiled"), use_known_seed=True,
+        do_posterior_sums=True, do_major_minor_posterior_sums=True,
+        jobs=1000, job_ind=1)
+    a = ASMC(params, data=data, device=DEVICE, batch_size=8192)
+    a.decode_all_in_job(verbose=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        a.decode_all_in_job(verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, groups = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        spans.append((lo, hi))
+        name = e.name
+        group = next((g for k, g in (("hmm_backward", "backward"),
+                                     ("hmm_forward", "forward"),
+                                     ("block_reduce", "reduction"),
+                                     ("emcpy", "copies"), ("emset", "copies"))
+                      if k in name), "other torch kernels (prologue)")
+        groups[group] = groups.get(group, 0.0) + (hi - lo) / 1e6
+    busy, end = 0.0, -1.0
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    res = {} if not spans else dict(
+        wall_s=wall, device_busy_s=busy / 1e6,
+        device_idle_share=1 - busy / 1e6 / wall,
+        device_s_by_group=groups)
+    log("[asmc-scale] profiled warm run (array, exact): " + json.dumps(res))
+    del a
+    return res
+
+
 def build_log(info, KP: int, K: int) -> None:
     """ptxas' registers and spills of the instantiations this model runs."""
     tag, fn = f"_kernelILi{KP // 8}E", None
@@ -1247,9 +1469,14 @@ def variant_decoders(DecodingParams, kernels, data) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab-parent", metavar="DIR",
-                    help="A/B the exact array kernels against the sources "
-                    "of the checkout at DIR")
+                    help="A/B the decode kernels against the sources of the "
+                    "checkout at DIR")
+    ap.add_argument("--ab-only", action="store_true",
+                    help="with --ab-parent: stop after the build, the A/B "
+                    "and the batch-invariance check")
     args = ap.parse_args()
+    if args.ab_only and not args.ab_parent:
+        ap.error("--ab-only needs --ab-parent")
     # 1. the card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1280,12 +1507,18 @@ def main() -> int:
                             make_panel(4096, seed=1))
     dec = decs["array", "exact"]
     build_log(info, dec.tables.KP, dec.K)
-    kres = compare_kernels(dec, kernels)
     if args.ab_parent:
-        ab_parent(args.ab_parent, dec, kernels, info.log)
+        ab_parent(args.ab_parent, decs, kernels, info)
+        if args.ab_only:
+            batch_invariance(decs, kernels)
+            log("[a/b] --ab-only: stopped after the A/B")
+            return 0
+    kres = compare_kernels(dec, kernels)
+    batch_invariance(decs, kernels)
     torch.cuda.empty_cache()
     # 10. the sequence-mode and fast/turbo instantiations
     kres.update(compare_variants(decs, kernels))
+    time_fast_cap(decs, kernels, kres)
     del dec, decs
     torch.cuda.empty_cache()
 
@@ -1323,6 +1556,7 @@ def main() -> int:
     n, exact_sums, _ = asmc_scale_leg(ASMC, DecodingParams, kernels,
                                       scale_data)
     add(n, "asmc_scale")
+    profile_asmc_leg(ASMC, DecodingParams, scale_data)
     add(no_hashing_leg(FastSMC, DecodingParams, kernels, example))
     # 11. sequence mode
     add(asmc_golden_leg(ASMC, DecodingParams, kernels, example, "sequence"))

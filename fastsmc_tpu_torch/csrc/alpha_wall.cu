@@ -25,7 +25,10 @@
 //   post = a * (NORM_BLOCK ? c[:KA] : carry[:KA]);
 //   out[r][p] = sum_{k < min(10, KA)} post[k] / sum_{k < KA} post[k]
 //   (the probe divides each row by the sum, then adds the ten; here the ten
-//   are added first, one division less: they differ in the last f32 bits).
+//   are added first, one division less: they differ in the last f32 bits);
+//   where asked, the raw carry [KC][P] after site carry_site: the output is
+//   renormalised per column, so only the carry shows where the pass
+//   normalises.
 //
 // Bound on an H100: per pair and site a 128 x 128 product (16k FMA, 32k
 // FLOP) against 144 bytes of bf16 alpha written or read (18 when once per
@@ -156,7 +159,8 @@ __global__ void __launch_bounds__(kThreads)
                                const __nv_bfloat16* __restrict__ alpha,
                                const int* __restrict__ ops,    // [T]
                                float* __restrict__ out,        // [T][P]
-                               int T, int P, int KA, int S) {
+                               float* __restrict__ carry_out,  // [KC][P] or null
+                               int carry_site, int T, int P, int KA, int S) {
   extern __shared__ float4 smem4[];
   float* sM = reinterpret_cast<float*>(smem4);
   float* sC = sM + kStates * kStates;
@@ -198,6 +202,11 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();  // every warp's reads of sM and sC done
 #pragma unroll
       for (int i = 0; i < kRows; ++i) carry[i] = c[i];
+    }
+    if (carry_out && r == carry_site && live) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        carry_out[(warp + kWarps * i) * Pz + p] = carry[i];
     }
     const __nv_bfloat16* a =
         alpha + static_cast<size_t>(READ_EVERY ? r : r / S) * KA * Pz;
@@ -243,13 +252,13 @@ int launch_forward(const __nv_bfloat16* M, int G, const float* em,
 template <bool READ_EVERY, bool NORM_BLOCK>
 int launch_backward(const __nv_bfloat16* M, int G, const float* em,
                     const float* obs, const __nv_bfloat16* alpha,
-                    const int* ops, float* out, int T, int P, int KA, int S,
-                    cudaStream_t stream) {
+                    const int* ops, float* out, float* carry, int carry_site,
+                    int T, int P, int KA, int S, cudaStream_t stream) {
   auto* kernel = alpha_wall_backward_kernel<READ_EVERY, NORM_BLOCK>;
   const int rc = allow_shared(kernel, kShared);
   if (rc != 0) return rc;
   kernel<<<(P + kPairs - 1) / kPairs, kThreads, kShared, stream>>>(
-      M, G, em, obs, alpha, ops, out, T, P, KA, S);
+      M, G, em, obs, alpha, ops, out, carry, carry_site, T, P, KA, S);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -290,16 +299,21 @@ extern "C" int fastsmc_alpha_wall_forward(const void* M, int G,
 
 // Launch the probe's backward kernel on `stream` (device `device`); returns
 // the cudaError_t of the launch. alpha is [T][KA][P] bf16 (read_every) or
-// [T/S][KA][P]; out is [T][P] f32. Shapes as for the forward kernel.
+// [T/S][KA][P]; out is [T][P] f32; carry, unless null, receives the raw
+// carry [KC][P] f32 after site carry_site (0 <= carry_site < T). Shapes as
+// for the forward kernel.
 extern "C" int fastsmc_alpha_wall_backward(const void* M, int G,
                                            const float* em, const float* obs,
                                            const void* alpha, const int* ops,
-                                           float* out, int T, int P, int KC,
+                                           float* out, float* carry,
+                                           int carry_site, int T, int P, int KC,
                                            int KA, int S, int read_every,
                                            int norm_block, int device,
                                            void* stream) {
   using namespace fastsmc;
-  if (bad_shape(T, P, G, KC, KA, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(T, P, G, KC, KA, S) ||
+      (carry && (carry_site < 0 || carry_site >= T)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const auto* m = static_cast<const __nv_bfloat16*>(M);
@@ -307,9 +321,9 @@ extern "C" int fastsmc_alpha_wall_backward(const void* M, int G,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (read_every)
     return norm_block
-               ? launch_backward<true, true>(m, G, em, obs, a, ops, out, T, P, KA, S, s)
-               : launch_backward<true, false>(m, G, em, obs, a, ops, out, T, P, KA, S, s);
+               ? launch_backward<true, true>(m, G, em, obs, a, ops, out, carry, carry_site, T, P, KA, S, s)
+               : launch_backward<true, false>(m, G, em, obs, a, ops, out, carry, carry_site, T, P, KA, S, s);
   return norm_block
-             ? launch_backward<false, true>(m, G, em, obs, a, ops, out, T, P, KA, S, s)
-             : launch_backward<false, false>(m, G, em, obs, a, ops, out, T, P, KA, S, s);
+             ? launch_backward<false, true>(m, G, em, obs, a, ops, out, carry, carry_site, T, P, KA, S, s)
+             : launch_backward<false, false>(m, G, em, obs, a, ops, out, carry, carry_site, T, P, KA, S, s);
 }

@@ -29,21 +29,44 @@
 // (kernels.py:233-243); the combine renormalises every site.
 //
 // Bound on an H100: the same FP32 operator product as the forward pass
-// (~5.2k FMA per pair and site) plus reading alpha and writing the
-// posterior (~600 bytes per pair and site), still compute-bound; sequence
-// mode does two products per site. Design:
-// the forward kernel's tile (one block per 32 pairs, the window as a loop
-// inside the block), walking pos = T-1 .. 0. beta stays in registers; the
+// (~5.2k FMA per pair and site, two products a site in sequence mode)
+// plus reading alpha and writing the posterior (~600 bytes per pair and
+// site): compute-bound on paper (67 TFLOP/s f32). What bounds this kernel
+// is the shared-memory data path that feeds the product: an SM hands its
+// lanes one 32-bit word each a clock, against four warp-FFMAs, and for
+// every four j each thread loads nine 16-byte operator broadcasts (36
+// words) and four operand words for 36 FFMA, so the product runs at most
+// at 9 / 40 of the FP32 rate (PERF.md §6). Reusing an operator word
+// for two pairs a lane halves its loads, but at the batches this kernel
+// runs (8,192 pairs) leaves one block of 8 warps an SM, too few to hide
+// the latencies, and was slower; it was taken out.
+// Design: one block per 32 pairs (lane = pair) walks pos = T-1 .. 0; warp
+// w owns the state rows w, w+8, ...; beta stays in registers; the
 // product's operand beta_{pos+1} * em_{pos+1} is the only thing written to
-// shared memory. Per-pair outputs reduce across warps through shared
-// memory, so the [T, K, P] posterior is written only when it is asked for.
-// The TPU block holds every pair and sums over them in its body; here a
-// block holds 32, so each warp sums its lanes with a fixed shuffle tree and
-// writes one partial per block, and a second kernel adds the blocks in a
-// fixed order: no float atomics, and two runs give the same bits. Lanes
-// past P hold 0/0 = NaN posteriors; they are masked out of every sum. In
-// sequence mode the half-step's result passes through shared memory as
-// the second product's operand, after one barrier more per site.
+// shared memory. What the design keeps off each site's chain:
+//   - the operators arrive by bulk copy (cp.async.bulk, completed on an
+//     mbarrier), issued ahead of their use: on the exact profile into a
+//     ring of tiles the product reads (two in array mode, three in
+//     sequence mode, where two operators a site are used), so no site
+//     waits on L2 or on a staging barrier; on the approximate profiles into
+//     one raw tile a site ahead, rounded (fast) or widened (turbo) into the
+//     product's tile as it is used, the values the TPU kernel's bf16 pass
+//     reads;
+//   - each site's alpha and observations are loaded before its product, so
+//     that their device-memory latency hides behind the FMAs.
+// No sum changes its order: every product accumulator is one fmaf chain
+// over j ascending from 0; each column sum adds the eight row groups'
+// partials (w ascending); MAP keeps the first maximum; each block's
+// over-pairs partial is its xor butterfly over the lanes. Per-pair outputs
+// reduce across warps through shared memory, so the [T, K, P] posterior is
+// written only when it is asked for. The TPU block holds every pair and
+// sums over them in its body; here a block holds 32, so each warp sums its
+// lanes with a fixed shuffle tree and writes one partial per block, and a
+// second kernel adds the blocks in a fixed order: no float atomics, and
+// two runs give the same bits. Lanes past P hold 0/0 = NaN posteriors;
+// they are masked out of every sum. In sequence mode the half-step's
+// result passes through shared memory as the second product's operand,
+// after one barrier more per site.
 #include <math.h>
 
 #include "hmm_common.cuh"
@@ -67,6 +90,129 @@ struct AsmcOut {
 // set adds the per-pair epilogue's means, MAP values and MAP states.
 constexpr int kRedBuffers = 3;
 constexpr int kRedBuffersFull = 6;
+// Dynamic shared memory a block may take on an H100 (227 KB).
+constexpr size_t kMaxShared = 232448;
+
+// Shared memory with `tiles` f32 operator tiles and `bars` mbarriers: the
+// tiles [KP][KP], the product operand [KP][kPairs] (and the half-step in
+// sequence mode), the reduction buffers [kWarps][kPairs].
+__host__ __device__ constexpr size_t backward_shared(int KP, bool FULL,
+                                                     bool SEQ, int tiles,
+                                                     int bars) {
+  return sizeof(float) * (static_cast<size_t>(tiles) * KP * KP +
+                          (SEQ ? 2 : 1) * KP * kPairs +
+                          (FULL ? kRedBuffersFull : kRedBuffers) * kWarps *
+                              kPairs) +
+         bars * sizeof(uint64_t);
+}
+
+// The operator tiles of one instantiation. Exact profile: a ring of
+// kTiles tiles the product reads, each copied a tile ahead of its use, one
+// mbarrier a tile; three in sequence mode where they fit, else two.
+// Approximate profiles: kTiles product tiles (two in sequence mode) and
+// one raw tile with its mbarrier; where the raw tile does not fit
+// (sequence mode at the largest K) they stage each operator synchronously.
+template <int KP, bool FULL, bool SEQ, bool APPROX>
+struct Tiles {
+  static constexpr int kTiles =
+      APPROX ? (SEQ ? 2 : 1)
+      : SEQ && backward_shared(KP, FULL, SEQ, 3, 3) <= kMaxShared ? 3 : 2;
+  static constexpr int kRaw =
+      APPROX && backward_shared(KP, FULL, SEQ, kTiles + 1, 1) <= kMaxShared;
+  static constexpr int kBars = APPROX ? kRaw : kTiles;
+  static constexpr size_t kShared =
+      backward_shared(KP, FULL, SEQ, kTiles + kRaw, kBars);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: the barrier expects `bytes` more, and the bulk-copy engine
+// moves them from global `src` to shared `dst` (both 16-byte aligned, a
+// multiple of 16 bytes), completing on the barrier.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// The raw tile as the product reads it: rounded to bf16 (fast, f32 stored)
+// or widened (turbo, bf16 stored), the values stage_operator_bf16 gives.
+__device__ __forceinline__ void round_tile(float* __restrict__ dst,
+                                           const float* __restrict__ raw,
+                                           bool bf16_store, int KP) {
+  float4* out = reinterpret_cast<float4*>(dst);
+  if (bf16_store) {
+    const uint4* src = reinterpret_cast<const uint4*>(raw);
+    for (int i = threadIdx.x; i < KP * KP / 8; i += kThreads) {
+      const uint4 u = src[i];
+      out[2 * i] = make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                               bf16_hi(u.y));
+      out[2 * i + 1] = make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w),
+                                   bf16_hi(u.w));
+    }
+  } else {
+    const float4* src = reinterpret_cast<const float4*>(raw);
+    for (int i = threadIdx.x; i < KP * KP / 4; i += kThreads) {
+      const float4 v = src[i];
+      out[i] = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                           round_bf16(v.w));
+    }
+  }
+}
+
+// acc[i] = sum_j sM[k_i][j] * sV[j][lane] for this thread's rows
+// k_i = warp + kWarps * i: one fmaf chain over j ascending from 0 per
+// accumulator, as matvec (hmm_common.cuh) takes it, each operator row read
+// as 16-byte broadcasts, four j a load.
+template <int RPW>
+__device__ __forceinline__ void product(float (&acc)[RPW],
+                                        const float* __restrict__ sM,
+                                        const float* __restrict__ sV,
+                                        int lane, int warp) {
+  constexpr int KP = RPW * kWarps;
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < KP; j += 4) {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = sV[(j + q) * kPairs + lane];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const float4 m =
+          *reinterpret_cast<const float4*>(sM + (warp + kWarps * i) * KP + j);
+      acc[i] = fmaf(m.x, v[0], acc[i]);
+      acc[i] = fmaf(m.y, v[1], acc[i]);
+      acc[i] = fmaf(m.z, v[2], acc[i]);
+      acc[i] = fmaf(m.w, v[3], acc[i]);
+    }
+  }
+}
+
+// Two blocks an SM (at most 128 registers) where the rows fit, up to 80
+// states; without it ptxas caps some instantiations at 64 or 80 registers
+// and spills, or takes more than 128 and leaves one block an SM.
+template <int RPW>
+constexpr int kMinBlocks = RPW <= 10 ? 2 : 1;
 
 // FULL selects at compile time the outputs only ASMC reads (per-pair means
 // and MAP states, the sums over pairs), as the TPU kernel selects its
@@ -74,7 +220,7 @@ constexpr int kRedBuffersFull = 6;
 // threshold sums only, so its instantiation carries none of their
 // registers, buffers or epilogues.
 template <int RPW, bool FULL, bool SEQ, bool APPROX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<RPW>)
     hmm_backward_kernel(const float* __restrict__ Mb, int G,
                         const float* __restrict__ em,     // [T][3][KP]
                         const float* __restrict__ obs,    // [T][2][P]
@@ -90,30 +236,85 @@ __global__ void __launch_bounds__(kThreads)
                         bool op_bf16) {                 // Mb is bf16 (turbo)
   constexpr int KP = RPW * kWarps;
   constexpr bool kNormBlock = APPROX && !SEQ;  // kernels.py:396-398
+  // alpha loaded before the product, except in the approximate array
+  // kernel with the ASMC outputs: there the early loads make ptxas spill
+  // at 128 registers (28 bytes at K=69)
+  constexpr bool kEarlyAlpha = !(FULL && APPROX && !SEQ);
+  using L = Tiles<KP, FULL, SEQ, APPROX>;
+  constexpr int kTiles = L::kTiles;
   extern __shared__ float4 smem4[];
-  float* sM = reinterpret_cast<float*>(smem4);  // [KP][KP] operator of gap pos
-  float* sV = sM + KP * KP;                     // [KP][kPairs] beta*em at pos+1
-  float* sRed0 = sV + KP * kPairs;              // beta normalisation
+  float* sM = reinterpret_cast<float*>(smem4);  // kTiles operators [KP][KP]
+  float* sRaw = sM + kTiles * KP * KP;          // APPROX: the stored operator
+  float* sV = sRaw + L::kRaw * KP * KP;         // [KP][kPairs] beta*em at pos+1
+  float* sMid = sV + KP * kPairs;               // SEQ: [KP][kPairs] half-step
+  float* sRed0 = sMid + (SEQ ? KP * kPairs : 0);  // beta normalisation
   float* sRed1 = sRed0 + kWarps * kPairs;       // posterior normalisation
   float* sTh = sRed1 + kWarps * kPairs;         // threshold sums
   float* sMean = sTh + kWarps * kPairs;         // FULL only: means, MAP
   float* sMapV = sMean + kWarps * kPairs;
   int* sMapK = reinterpret_cast<int*>(sMapV + kWarps * kPairs);
-  // SEQ: the rate operator and the half-step, after the reduction buffers
-  float* sM2 = sRed0 + (FULL ? kRedBuffersFull : kRedBuffers) * kWarps * kPairs;
-  float* sMid = sM2 + KP * KP;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      sRed0 + (FULL ? kRedBuffersFull : kRedBuffers) * kWarps * kPairs);
   const int lane = threadIdx.x % kPairs;
   const int warp = threadIdx.x / kPairs;
   const int p = blockIdx.x * kPairs + lane;
   const bool live = p < P;
   const size_t Pz = static_cast<size_t>(P);
 
-  float et[RPW];
-  if constexpr (FULL) {
+  // The operator tiles, in the order the sites use them (array: ops[T-2],
+  // ops[T-3], ...; sequence: ops[T-2], rops[T-2], ops[T-3], ...). Exact:
+  // tile n lands in slot n % kTiles, on that slot's barrier, as its
+  // (n / kTiles)-th copy; before tile n is used, and after the barrier that
+  // ends every read of tile n - 1, one thread issues tile n + kTiles - 1
+  // into the slot tile n - 1 held. Approximate: tile n lands in the raw
+  // tile as the barrier's n-th copy; after the barrier that ends its
+  // rounding into a product tile, one thread issues tile n + 1.
+  const int n_tiles = (T - 1) * (SEQ ? 2 : 1);
+  constexpr bool kCopy = !APPROX || L::kRaw;  // operators by bulk copy
+  constexpr int kAhead = APPROX ? 1 : kTiles - 1;  // copies in flight
+  auto op_of = [=](int n) {
+    const int site = T - 2 - (SEQ ? n / 2 : n);
+    return SEQ && (n & 1) ? rops[site] : ops[site];
+  };
+  auto issue = [=](int n) {
+    const int op = op_of(n);
+    if (op < 0 || op >= G) __trap();  // a caller bug: stop the kernel
+    const size_t at = static_cast<size_t>(op) * KP * KP;
+    if constexpr (APPROX) {
+      if (op_bf16)
+        bulk_copy(sRaw, reinterpret_cast<const __nv_bfloat16*>(Mb) + at,
+                  sizeof(__nv_bfloat16) * KP * KP, bars);
+      else
+        bulk_copy(sRaw, Mb + at, sizeof(float) * KP * KP, bars);
+    } else {
+      bulk_copy(sM + (n % kTiles) * KP * KP, Mb + at, sizeof(float) * KP * KP,
+                &bars[n % kTiles]);
+    }
+  };
+  // tile n: landed (exact), or landed and rounded into product tile `slot`,
+  // or staged there (approximate; the caller's barrier makes it visible)
+  auto tile = [=](int n, int slot) -> const float* {
+    if constexpr (!kCopy) {
+      stage<APPROX>(sM + slot * KP * KP, Mb, op_bf16, op_of(n), G, KP);
+      return sM + slot * KP * KP;
+    } else if constexpr (APPROX) {
+      wait_phase(bars, n & 1);
+      round_tile(sM + slot * KP * KP, sRaw, op_bf16, KP);
+      return sM + slot * KP * KP;
+    } else {
+      wait_phase(&bars[n % kTiles], (n / kTiles) & 1);
+      return sM + (n % kTiles) * KP * KP;
+    }
+  };
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < RPW; ++i)
-      et[i] = out.mean ? exp_times[warp + kWarps * i] : 0.f;
+    for (int s = 0; s < L::kBars; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_u32(&bars[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int n = 0; kCopy && n < kAhead && n < n_tiles; ++n) issue(n);
   }
+  __syncthreads();  // barriers initialised
 
   // lastBeta = 1/K on real states (HMM.cpp:886-897), rounded from double
   // as the JAX package does
@@ -123,26 +324,44 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < RPW; ++i) b[i] = (warp + kWarps * i) < K ? beta0 : 0.f;
 
   for (int pos = T - 1; pos >= 0; --pos) {
+    // this site's alpha and observations, loaded before the product so
+    // that their latency hides behind it
+    const AlphaT<APPROX>* alpha_t = alpha + static_cast<size_t>(pos) * KP * Pz;
+    AlphaT<APPROX> a[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+      if constexpr (kEarlyAlpha)
+        a[i] = live ? alpha_t[(warp + kWarps * i) * Pz + p]
+                    : float_to_alpha<APPROX>(0.f);
+    const float oz = live ? obs[(2 * static_cast<size_t>(pos)) * Pz + p] : 1.f;
+    const float oh = live ? obs[(2 * static_cast<size_t>(pos) + 1) * Pz + p] : 0.f;
+
     if (pos < T - 1) {
-      stage<APPROX>(sM, Mb, op_bf16, ops[pos], G, KP);
-      if constexpr (SEQ) stage<APPROX>(sM2, Mb, op_bf16, rops[pos], G, KP);
-      __syncthreads();  // operators and operand visible
       float acc[RPW];
-      matvec<RPW>(acc, sM, sV, lane, warp);
+      const int n = (T - 2 - pos) * (SEQ ? 2 : 1);
+      if (threadIdx.x == 0 && !APPROX && n + kAhead < n_tiles)
+        issue(n + kAhead);
+      const float* m = tile(n, 0);
+      __syncthreads();  // operand (and a rounded or staged tile) visible
+      if (threadIdx.x == 0 && APPROX && kCopy && n + 1 < n_tiles) issue(n + 1);
+      product<RPW>(acc, m, sV, lane, warp);
       if constexpr (SEQ) {
         // marker step's operand: the half-step times em_{pos+1}
         const float* em_n = em + static_cast<size_t>(pos + 1) * 3 * KP;
         const size_t o = 2 * static_cast<size_t>(pos + 1) * Pz + p;
-        const float oz = live ? obs[o] : 1.f;
-        const float oh = live ? obs[o + Pz] : 0.f;
+        const float ozn = live ? obs[o] : 1.f;
+        const float ohn = live ? obs[o + Pz] : 0.f;
 #pragma unroll
         for (int i = 0; i < RPW; ++i) {
           const int k = warp + kWarps * i;
           sMid[k * kPairs + lane] =
-              operand<APPROX>(acc[i] * emission(em_n, k, KP, oz, oh));
+              operand<APPROX>(acc[i] * emission(em_n, k, KP, ozn, ohn));
         }
-        __syncthreads();  // half-step visible; last step's sMid reads done
-        matvec<RPW>(acc, sM2, sMid, lane, warp);
+        const float* m2 = APPROX ? tile(n + 1, 1) : nullptr;
+        __syncthreads();  // half-step visible; every read of tile n done
+        if (threadIdx.x == 0 && kCopy && n + 1 + kAhead < n_tiles)
+          issue(n + 1 + kAhead);
+        product<RPW>(acc, APPROX ? m2 : tile(n + 1, 0), sMid, lane, warp);
       }
       float inv = 1.f;
       if constexpr (kNormBlock) {
@@ -164,18 +383,20 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // combine (kernels.py:262-291)
-    const AlphaT<APPROX>* alpha_t = alpha + static_cast<size_t>(pos) * KP * Pz;
     float q[RPW];
     float part = 0.f;
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const int k = warp + kWarps * i;
-      q[i] = live ? alpha_to_float(alpha_t[k * Pz + p]) * b[i] : 0.f;
+      q[i] = live ? alpha_to_float(kEarlyAlpha
+                                       ? a[i]
+                                       : alpha_t[(warp + kWarps * i) * Pz + p]) *
+                        b[i]
+                  : 0.f;
       part += q[i];
     }
     const float s = column_sum(sRed1, part, lane, warp);
     float* post_t = post ? post + static_cast<size_t>(pos) * KP * Pz
-                             : nullptr;
+                         : nullptr;
     float tpart = 0.f, mpart = 0.f, best = -INFINITY;
     int best_k = warp;
 #pragma unroll
@@ -185,7 +406,7 @@ __global__ void __launch_bounds__(kThreads)
       if (post_t && live) post_t[k * Pz + p] = q[i];
       if (k < state_threshold) tpart += q[i];
       if constexpr (FULL) {
-        mpart += q[i] * et[i];
+        if (out.mean) mpart += q[i] * exp_times[k];
         if (q[i] > best) {  // rows ascend in k: keeps the first maximum
           best = q[i];
           best_k = k;
@@ -225,9 +446,6 @@ __global__ void __launch_bounds__(kThreads)
         if (out.map) out.map[o] = static_cast<float>(bk);
       }
     }
-
-    const float oz = live ? obs[(2 * static_cast<size_t>(pos)) * Pz + p] : 1.f;
-    const float oh = live ? obs[(2 * static_cast<size_t>(pos) + 1) * Pz + p] : 0.f;
 
     // over-pairs sums: this block's partial, lane i storing row i's
     if constexpr (FULL) {
@@ -300,10 +518,8 @@ struct BackwardArgs {
 
 template <int RPW, bool FULL, bool SEQ, bool APPROX>
 int launch_backward(const BackwardArgs& a, cudaStream_t stream) {
-  constexpr int KP = RPW * kWarps;
-  const size_t smem =
-      shared_bytes(KP, FULL ? kRedBuffersFull : kRedBuffers) +
-      (SEQ ? sizeof(float) * (KP * KP + KP * kPairs) : 0);
+  constexpr size_t smem = Tiles<RPW * kWarps, FULL, SEQ, APPROX>::kShared;
+  static_assert(smem <= kMaxShared, "operator tiles exceed shared memory");
   auto* kernel = hmm_backward_kernel<RPW, FULL, SEQ, APPROX>;
   const int rc = allow_shared(kernel, smem);
   if (rc != 0) return rc;

@@ -46,10 +46,10 @@ _ARGTYPES = {
     # norm_block, device, stream
     "fastsmc_alpha_wall_forward": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _P],
-    # M, G, em, obs, alpha, ops, out, T, P, KC, KA, S, read_every,
-    # norm_block, device, stream
-    "fastsmc_alpha_wall_backward": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _P],
+    # M, G, em, obs, alpha, ops, out, carry, carry_site, T, P, KC, KA, S,
+    # read_every, norm_block, device, stream
+    "fastsmc_alpha_wall_backward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

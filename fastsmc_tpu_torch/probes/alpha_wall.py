@@ -41,6 +41,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -137,11 +138,14 @@ def forward_reference(M, em, obs, isp, ops, store_every: bool = True,
 
 
 def backward_reference(M, em, obs, alpha, ops, read_every: bool = True,
-                       norm_block: bool = False, S: int = 8) -> torch.Tensor:
+                       norm_block: bool = False, S: int = 8,
+                       carry_site: Optional[int] = None):
     """``make_bwd(read_every, norm_block)`` with the carry started at 1/KC:
     ``out`` f32 ``[T, 1, P]``, the sum of the first 10 rows of each site's
     normalised posterior. ``alpha`` is ``[T, KA, P]`` (``read_every``) or
-    ``[T/S, KA, P]``."""
+    ``[T/S, KA, P]``. With ``carry_site``, returns ``(out, carry)``: the raw
+    carry f32 ``[KC, P]`` after that site (the output is renormalised per
+    column, so only the carry shows where the pass normalises)."""
     T, _, P = obs.shape
     KC = M.shape[-1]
     Mf = M.float()
@@ -149,16 +153,19 @@ def backward_reference(M, em, obs, alpha, ops, read_every: bool = True,
     out = torch.empty((T, 1, P), dtype=torch.float32, device=obs.device)
     carry = torch.full((KC, P), 1.0 / KC, dtype=torch.float32,
                        device=obs.device)
+    kept = None
     for r in range(T - 1, -1, -1):
         e = kernels._emission(em[r], obs[r])
         c = Mf[ops[r]] @ kernels._bf16(carry * e)
         carry = c if norm_block and r % S != 0 else \
             c / c.sum(dim=0, keepdim=True)
+        if r == carry_site:
+            kept = carry.clone()
         a = alpha[r if read_every else r // S].float()
         post = a * (c if norm_block else carry)[:a.shape[0]]
         post = post / post.sum(dim=0, keepdim=True)
         out[r, 0] = post[:POST_ROWS].sum(dim=0)
-    return out
+    return out if carry_site is None else (out, kept)
 
 
 # ---------------------------------------------------------------------------
@@ -204,25 +211,33 @@ def forward(M, em, obs, isp, ops, store_every: bool = True,
 
 
 def backward(M, em, obs, alpha, ops, read_every: bool = True,
-             norm_block: bool = False, S: int = 8) -> torch.Tensor:
+             norm_block: bool = False, S: int = 8,
+             carry_site: Optional[int] = None):
     """The probe's backward-shaped pass: the CUDA kernel for CUDA tensors,
-    :func:`backward_reference` for CPU tensors."""
+    :func:`backward_reference` for CPU tensors; ``(out, carry)`` with
+    ``carry_site``."""
     if obs.device.type == "cpu":
         return backward_reference(M, em, obs, alpha, ops, read_every,
-                                  norm_block, S)
+                                  norm_block, S, carry_site)
     T, P, G, KC = _check_inputs(M, em, obs, ops, S)
+    if carry_site is not None and not 0 <= carry_site < T:
+        raise ValueError(f"carry_site={carry_site} outside [0, {T})")
     KA = alpha.shape[1]
     kernels._check("alpha", alpha, torch.bfloat16,
                    (T if read_every else T // S, KA, P))
     out = torch.empty((T, 1, P), dtype=torch.float32, device=obs.device)
+    carry = None if carry_site is None else torch.empty(
+        (KC, P), dtype=torch.float32, device=obs.device)
     rc = load_library().fastsmc_alpha_wall_backward(
         M.data_ptr(), G, em.data_ptr(), obs.data_ptr(), alpha.data_ptr(),
-        ops.data_ptr(), out.data_ptr(), T, P, KC, KA, S, int(read_every),
-        int(norm_block), obs.device.index or 0,
+        ops.data_ptr(), out.data_ptr(),
+        None if carry is None else carry.data_ptr(),
+        0 if carry_site is None else carry_site, T, P, KC, KA, S,
+        int(read_every), int(norm_block), obs.device.index or 0,
         torch.cuda.current_stream(obs.device).cuda_stream)
     kernels._raise_on(rc, "alpha_wall_backward")
     kernels.LAUNCHES["alpha_wall_backward"] += 1
-    return out
+    return out if carry is None else (out, carry)
 
 
 def max_errors(got, want, chunk: int = 256) -> tuple:
@@ -241,9 +256,11 @@ def max_errors(got, want, chunk: int = 256) -> tuple:
     return abs_err, rel_err
 
 
-def run_variant(name: str, inp: dict, shape: Shape, plain: bool = False):
+def run_variant(name: str, inp: dict, shape: Shape, plain: bool = False,
+                carry_site: Optional[int] = None):
     """One pass of variant ``name`` on the inputs of :func:`make_inputs`:
-    its wrapper, or with ``plain`` its plain version."""
+    its wrapper, or with ``plain`` its plain version; a backward variant
+    with ``carry_site`` also returns its raw carry after that site."""
     kind, every, norm_block = VARIANTS[name]
     if kind == "fwd":
         fn = forward_reference if plain else forward
@@ -252,7 +269,7 @@ def run_variant(name: str, inp: dict, shape: Shape, plain: bool = False):
     alpha = inp["alpha"] if every else inp["alpha"][:shape.T // shape.S]
     fn = backward_reference if plain else backward
     return fn(inp["M"], inp["em"], inp["obs"], alpha, inp["ops"], every,
-              norm_block, shape.S)
+              norm_block, shape.S, carry_site)
 
 
 # ---------------------------------------------------------------------------

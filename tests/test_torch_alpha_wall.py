@@ -24,6 +24,11 @@ the wrong sites or by the wrong sum reads 0.77-3.7e3 on the same measure
 normalisation is the same function up to each column's scale: after each
 site's column is divided by its sum, alpha reads 8.3e-3 (one bf16 step) and
 the backward output 2.8e-4; gates rtol 2e-2 and 2e-3.
+
+The backward output is renormalised per column, so it cannot show where
+the backward normalises; its raw carry after a site inside a block can
+(test_backward_carry_gate_rejects_every_site_normalisation, with the
+card's gate on it).
 """
 
 import functools
@@ -41,6 +46,11 @@ from fastsmc_tpu_torch.probes import alpha_wall as aw
 
 RTOL = 1e-5
 NORM_RTOL = {"fwd": 2e-2, "bwd": 2e-3}
+# the probe's backward kernel's raw carry against the plain version's on the
+# card (chip_smoke.py's ALPHA_WALL_CARRY_RTOL), held after CARRY_SITE: not a
+# backward block end (r % S == 0) at any S > 1
+CARRY_RTOL = 1.6e-2
+CARRY_SITE = 1
 SMALL = aw.Shape(KC=16, KA=9, S=4, P=40, T=32, G=5)
 # KA=9 sums every stored row into the backward output (which is then 1);
 # KA=12 keeps the first-10-rows sum a real fraction
@@ -281,6 +291,37 @@ def test_gate_rejects_wrong_normalisation(shape_id):
         assert aw.max_errors(got, want)[1] > 0.5, what
 
 
+@pytest.mark.parametrize("shape_id", list(SHAPES))
+def test_backward_carry_gate_rejects_every_site_normalisation(shape_id):
+    """The raw carry of bwd_norm_block after CARRY_SITE, held as the card
+    holds the kernel's (element by element, relative, CARRY_RTOL): a wrong
+    plain version that normalises at every site under block normalisation
+    (bwd_read's arithmetic) misses that gate by far (reading 1.8e3 here),
+    while its output stays within bf16 level of the right one's, so only
+    the carry tells them apart. The two carries, each column divided by its
+    sum, agree at bf16 level (1.1e-3; 1.3e-3 at a block end). Asking for
+    the carry changes no output bit."""
+    shape = SHAPES[shape_id]
+    inp, _ = _inputs(shape)
+    out, carry = aw.run_variant("bwd_norm_block", inp, shape, plain=True,
+                                carry_site=CARRY_SITE)
+    w_out, wrong = aw.run_variant("bwd_read", inp, shape, plain=True,
+                                  carry_site=CARRY_SITE)
+    assert torch.equal(out, aw.run_variant("bwd_norm_block", inp, shape,
+                                           plain=True))
+    assert carry.shape == (shape.KC, shape.P) and (carry > 0).all()
+    assert aw.max_errors(wrong, carry)[1] > 10 * CARRY_RTOL
+    torch.testing.assert_close(w_out, out, rtol=NORM_RTOL["bwd"], atol=0)
+    torch.testing.assert_close(carry / carry.sum(dim=0, keepdim=True), wrong,
+                               rtol=NORM_RTOL["bwd"], atol=0)
+    # at a block end the two carries are both normalised
+    _, a = aw.run_variant("bwd_norm_block", inp, shape, plain=True,
+                          carry_site=shape.S)
+    _, b = aw.run_variant("bwd_read", inp, shape, plain=True,
+                          carry_site=shape.S)
+    assert aw.max_errors(a, b)[1] <= NORM_RTOL["bwd"]
+
+
 def test_nostore_keeps_each_blocks_last_site():
     inp, _ = _inputs(SMALL)
     a = aw.run_variant("fwd_store", inp, SMALL, plain=True)
@@ -295,6 +336,10 @@ def test_wrappers_take_plain_versions_on_cpu():
         got = aw.run_variant(name, inp, SMALL)
         want = aw.run_variant(name, inp, SMALL, plain=True)
         assert torch.equal(got, want), name
+    got = aw.run_variant("bwd_read", inp, SMALL, carry_site=CARRY_SITE)
+    want = aw.run_variant("bwd_read", inp, SMALL, plain=True,
+                          carry_site=CARRY_SITE)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert dict(kernels.LAUNCHES) == before
 
 

@@ -17,7 +17,8 @@ counts, so the sums over P pairs are held at that atol * P against the
 plain version, and within 1e-5 * P against the kernel's own posterior
 output summed over pairs; turbo equals fast bit for bit. The alpha-wall
 probe's kernels: raw alpha within ALPHA_WALL_FWD_RTOL of the plain value
-at every element, the backward output within ALPHA_WALL_BWD_ATOL."""
+at every element, the backward output within ALPHA_WALL_BWD_ATOL and its
+raw carry after site 1 within ALPHA_WALL_CARRY_RTOL of the plain value."""
 
 import os
 
@@ -43,6 +44,7 @@ APPROX_ATOL = {"array": 5e-3, "sequence": 5e-2}
 # every site (chip_smoke.py's gates, with the readings behind them)
 ALPHA_WALL_FWD_RTOL = 1.6e-2
 ALPHA_WALL_BWD_ATOL = 2e-4
+ALPHA_WALL_CARRY_RTOL = 1.6e-2
 
 
 @pytest.fixture(scope="module")
@@ -293,6 +295,39 @@ def test_variant_kernels_match_plain(cuda, ctx, seq_ctx, mode, profile, t0,
         assert bool(torch.isfinite(x).all())
 
 
+@pytest.mark.parametrize("mode,profile", [
+    ("array", "exact"), ("sequence", "exact"), ("array", "fast"),
+    ("sequence", "fast")])
+def test_backward_batch_invariance(cuda, ctx, seq_ctx, mode, profile):
+    """The same 3,137 pairs as the first 3,137 of an 8,192-pair backward
+    launch and alone, on one alpha: their posterior, threshold sums, means
+    and MAP states are equal bit for bit (a block's pairs depend on no
+    other block, and the operators' bulk copies on no grid size)."""
+    dec = _variant(ctx, seq_ctx, mode, profile)
+    t = dec.tables
+    T, P, n = 64, 8192, 3137
+    obs, em, ops_f, ops_b, mask = _inputs(dec, 1000, T, P, seed=8)
+    seq_f = seq_b = None
+    if dec.sequence:
+        seq_f, seq_b = dec.seq_prologue(1000, T)
+    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                            profile)
+    outs = kernels.BwdOutputs(posterior=True, threshold_sums=True,
+                              per_pair_mean=True, per_pair_map=True)
+
+    def bwd(obs, alpha):
+        return kernels.backward_combine(t.Mb, em, obs, alpha, ops_b, mask,
+                                        dec.K, 11, outs, t.exp_times, seq_b,
+                                        profile)
+
+    full = bwd(obs, alpha)
+    alone = bwd(obs[..., :n].contiguous(), alpha[..., :n].contiguous())
+    assert set(full) == set(alone) == {"posterior", "threshold_sums",
+                                       "per_pair_mean", "per_pair_map"}
+    for name in full:
+        assert torch.equal(full[name][..., :n], alone[name]), name
+
+
 @pytest.mark.parametrize("mode", ["array", "sequence"])
 def test_turbo_equals_fast_on_the_card(cuda, ctx, seq_ctx, mode):
     fast = _variant(ctx, seq_ctx, mode, "fast")
@@ -335,3 +370,8 @@ def test_alpha_wall_kernels_match_plain(cuda, name):
     else:
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=ALPHA_WALL_BWD_ATOL)
+        _, carry = alpha_wall.run_variant(name, inp, shape, carry_site=1)
+        _, want_carry = alpha_wall.run_variant(name, inp, shape, plain=True,
+                                               carry_site=1)
+        assert alpha_wall.max_errors(carry, want_carry)[1] \
+            <= ALPHA_WALL_CARRY_RTOL

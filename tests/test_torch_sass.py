@@ -1,0 +1,56 @@
+"""The SASS counter of fastsmc_tpu_torch.probes.sass on a hand-written
+dump in both forms cuobjdump gives branch targets (an address, or a label
+line), and its reading of ptxas' log. The dump itself needs the CUDA
+toolkit and is read on the card by ``python -m
+fastsmc_tpu_torch.probes.sass`` and chip_smoke.py's A/B."""
+
+from fastsmc_tpu_torch.probes.sass import parse_sass, ptxas_lines
+
+NAME = "_ZN7fastsmc3bwd19hmm_backward_kernelILi9ELi2ELb0ELb0ELb0EEEvPKf"
+DUMP = f"""
+	code for sm_90a
+		Function : {NAME}
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;
+.L_x_3:
+        /*0030*/                   LDS.128 R4, [R2] ;
+        /*0040*/                   LDS R8, [R3] ;
+        /*0050*/                   LDS.64 R10, [R3+0x80] ;
+        /*0060*/                   FFMA R9, R4, R8, R9 ;
+        /*0070*/                   FFMA R12, R5, R8, R12 ;
+        /*0080*/              @!P0 BRA `(.L_x_3) ;
+        /*0090*/                   LDG.E R1, desc[UR4][R2.64] ;
+        /*00a0*/                   FFMA R9, R4, R8, R9 ;
+        /*00b0*/                   BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+		Function : other_kernel
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_counts_whole_function_and_densest_loop():
+    got = parse_sass(DUMP)
+    assert set(got) == {NAME, "other_kernel"}
+    total, loop = got[NAME]["total"], got[NAME]["densest_loop"]
+    assert total == {"FFMA": 3, "LDS": 1, "LDS.64": 1, "LDS.128": 1,
+                     "LDG": 1, "BAR": 1, "SYNCS": 1, "instructions": 13}
+    # the loop at .L_x_3 (6 instructions, 2 FFMA) is denser than the one
+    # back to 0x10 (11 instructions, 3 FFMA)
+    assert loop == {"FFMA": 2, "LDS": 1, "LDS.64": 1, "LDS.128": 1,
+                    "LDG": 0, "BAR": 0, "SYNCS": 0, "instructions": 6}
+    assert got["other_kernel"]["densest_loop"] is None
+
+
+def test_ptxas_lines():
+    log = (f"ptxas info    : Compiling entry function '{NAME}' for 'sm_90a'\n"
+           "ptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers, 32 bytes "
+           "smem\n")
+    got = ptxas_lines(log)
+    assert list(got) == [NAME]
+    assert "0 bytes spill stores" in got[NAME]
+    assert "Used 128 registers" in got[NAME]
