@@ -15,8 +15,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      kernel with the two sums at the ASMC scale leg's batches (the whole
      chromosome's T=8192 window, P=8192 and the last batch's P=3137),
      against their plain versions; batch invariance: 3,137 pairs as the
-     first of an 8,192-pair backward launch and alone give the same bits,
-     array and sequence mode, exact and fast;
+     first of an 8,192-pair launch and alone give the same bits, forward
+     and backward, array and sequence mode, exact and fast;
   4. FastSMC golden leg: FastSMC(...).run() on artifacts/panels/
      example_array must reproduce the record keys (first 9 columns) of
      tests/fixtures/example_array.golden.FastSMC.ibd.gz in order, with
@@ -84,15 +84,19 @@ Phase 10 also times the fast array kernels at the fast ASMC leg's batch
 
     python3 chip_smoke.py --ab-parent DIR [--ab-only]
 
-adds, before phase 3, an A/B of the decode kernels against those of
-another checkout at DIR (e.g. a `git archive` of the parent commit), each
-called through its own checkout's wrappers: the backward in array and
-sequence mode, exact and fast, at T=1024 (all six outputs, and FastSMC's
-two) and at the ASMC shape (T=8192, both sums, P=8192 and 3137), every
+adds, before phase 3, an A/B of the forward kernel against that of another
+checkout at DIR (e.g. a `git archive` of the parent commit), each called
+through its own checkout's wrappers on the same inputs: every forward
+branch (array and sequence mode, exact and fast) at T=1024 and at the ASMC
+shape (T=8192, P=8192 and 3137), fast array also at FAST_CAP_PAIRS, alpha
+within KERNEL_ATOL (exact) or APPROX_ATOL (fast) of the parent's, and bit
+for bit on the bf16 array branch, which keeps its FFMA kernel; the backward
+at the ASMC shape on one alpha fed to both sides as the control, every
 output equal to the parent's bit for bit (the sums as their per-group
-partials), times in turns three times each; the exact forward as the
-control; both builds' ptxas lines and SASS counts. --ab-only stops after
-the A/B and the batch-invariance check.
+partials); times in turns three times each; both builds' ptxas lines and
+SASS counts; then each forward branch against its plain version beside
+the plain version with f64 sums against it. --ab-only stops after the A/B
+and the batch-invariance check.
 """
 
 from __future__ import annotations
@@ -100,6 +104,7 @@ from __future__ import annotations
 import argparse
 import gzip
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -188,9 +193,13 @@ ALPHA_WALL_CARRY_SITE = 1
 # bound is the larger of bytes / MEM_BW and FLOP / PEAK[type], counting
 # each input byte read once and each output byte written once, and the
 # operator products only (the elementwise work of the decode kernels is
-# ~3 % more); bf16 operands with f32 sums are tensor-core work.
+# ~3 % more), at the real K (never the padded KP); bf16 operands with f32
+# sums are tensor-core work (but the bf16 array forward, whose kernel runs
+# them on the FP32 pipe); the forward's exact products run as 3xTF32 on the
+# tensor cores, three TF32 products for each, and the backward's on the
+# FP32 pipe.
 MEM_BW = 3.35e12
-PEAK = {"f32": 67e12, "bf16": 989e12}
+PEAK = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 SCALE_HAPS = 16384
 # where the tables live and the kernels run
 DEVICE = "cuda"
@@ -258,11 +267,15 @@ def decode_bound(kernel: str, T: int, P: int, K: int, G: int, seq: bool,
     bf16 operands otherwise; bytes of the observations, emission rows,
     homozygous emissions (sequence mode), the G operators of the panel,
     alpha (f32 exact, bf16 otherwise; written or read) and the requested
-    outputs (the sums over pairs as the reduced [T, K] and [T, 3, K])."""
+    outputs (the sums over pairs as the reduced [T, K] and [T, 3, K]).
+    The exact forward reads its operators as two TF32 tables and does three
+    TF32 products for each f32 one (3xTF32). bf16 operands are bounded by
+    the bf16 tensor-core peak whatever unit the kernel uses."""
     approx = profile != "exact"
+    tf32x3 = kernel == "forward" and not approx
     ab = 2 if approx else 4
     nbytes = 4 * (2 * T * P + 3 * T * K + (T * K if seq else 0)) \
-        + G * K * K * (2 if profile == "turbo" else 4) \
+        + G * K * K * (2 if profile == "turbo" else 8 if tf32x3 else 4) \
         + T * K * P * ab
     if outs is not None:
         nbytes += 4 * (T * K * P * outs.posterior
@@ -271,6 +284,8 @@ def decode_bound(kernel: str, T: int, P: int, K: int, G: int, seq: bool,
                        + T * K * (outs.posterior_sums
                                   + 3 * outs.major_minor_sums))
     flop = 2 * (T - 1) * P * K * K * (2 if seq else 1)
+    if tf32x3:
+        return bound(nbytes, 3 * flop, "tf32")
     return bound(nbytes, flop, "bf16" if approx else "f32")
 
 
@@ -346,7 +361,7 @@ def compare_kernels(dec, kernels) -> dict:
         obs, em, ops_f, ops_b, mask = dec.prologue(ha, hb, t0, T)
         real = min(T, dec.L - t0)
         fwd_args = (t.Mf, em, obs, t.isp, ops_f, mask)
-        alpha = kernels.forward(*fwd_args)
+        alpha = kernels.forward(*fwd_args, split=t.split)
         alpha_ref = kernels.forward_reference(*fwd_args)
         bwd_args = (t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11, all_outs,
                     t.exp_times)
@@ -387,7 +402,7 @@ def time_main_path(dec, kernels, res, fwd_args, bwd_args, P):
     res["hmm_forward"].update(decode_bound("forward", T, P, dec.K, G, False,
                                            "exact"))
     res["hmm_forward"]["ms"] = median_ms(
-        lambda: kernels.forward(*fwd_args), 10)
+        lambda: kernels.forward(*fwd_args, split=dec.tables.split), 10)
     res["hmm_forward"]["plain_ms"] = median_ms(
         lambda: kernels.forward_reference(*fwd_args), 3)
     per_output = {}
@@ -464,7 +479,7 @@ def time_asmc_shape(dec, kernels, res, rng):
         hb = (ha + 1 + rng.integers(0, H - 1, P)) % H
         obs, em, ops_f, ops_b, mask = dec.prologue(ha, hb, 0, T)
         fwd_args = (t.Mf, em, obs, t.isp, ops_f, mask)
-        alpha = kernels.forward(*fwd_args)
+        alpha = kernels.forward(*fwd_args, split=t.split)
         plain_fwd, alpha_ref = once_ms(
             lambda: kernels.forward_reference(*fwd_args))
         a_err = (alpha - alpha_ref).abs().max().item()
@@ -477,7 +492,8 @@ def time_asmc_shape(dec, kernels, res, rng):
                 for n in ("posterior_sums", "major_minor_sums")}
         finite = all(bool(torch.isfinite(x).all())
                      for x in [alpha, *got.values()])
-        ms = {"forward": median_ms(lambda: kernels.forward(*fwd_args), 3),
+        ms = {"forward": median_ms(
+            lambda: kernels.forward(*fwd_args, split=t.split), 3),
               "forward_plain": plain_fwd,
               "backward+reduce": median_ms(
                   lambda: kernels.backward_combine(*bwd_args), 3),
@@ -589,7 +605,8 @@ def profile_error(ex_dec, kernels, inp, got, want, outs, tol,
     gates against their plain versions (``tol`` + KERNEL_ATOL)."""
     obs, em, ops_f, ops_b, mask, seq_f, seq_b = inp
     t = ex_dec.tables
-    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f)
+    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                            split=t.split)
     ex = kernels.backward_combine(t.Mb, em, obs, alpha, ops_b, mask,
                                   ex_dec.K, 11, outs, t.exp_times, seq_b)
     del alpha
@@ -649,7 +666,7 @@ def compare_variants(decs, kernels) -> dict:
             inp = window_inputs(dec, *pairs, t0, T)
             obs, em, ops_f, ops_b, mask, seq_f, seq_b = inp
             fwd_args = (t.Mf, em, obs, t.isp, ops_f, mask, seq_f, profile)
-            alpha = kernels.forward(*fwd_args)
+            alpha = kernels.forward(*fwd_args, split=t.split)
             plain_fwd, alpha_ref = once_ms(
                 lambda: kernels.forward_reference(*fwd_args))
             a_err = alpha_err(alpha, alpha_ref)
@@ -705,7 +722,7 @@ def compare_variants(decs, kernels) -> dict:
                     if which == "all" else outs
                 fb_args = (*bwd_args[:8], fb, *bwd_args[9:])
                 rf[key + "ms"] = median_ms(
-                    lambda: kernels.forward(*fwd_args), reps)
+                    lambda: kernels.forward(*fwd_args, split=t.split), reps)
                 rb[key + "ms"] = median_ms(
                     lambda: kernels.backward_combine(*fb_args), reps)
                 for r, o in ((rf, None), (rb, fb)):
@@ -879,24 +896,25 @@ def alpha_wall_phase(kernels):
     return res, launches
 
 
-# the A/B's backward cases (mode, profile, t0, T, P, outputs): each branch
-# of the backward kernel at the main-path window with all six outputs (the
-# sums over pairs as their per-group partials) and with FastSMC's two, and
-# at the ASMC scale leg's batches (P=8192 and the last batch's 3,137) with
-# both sums. Turbo runs fast's instantiation (phase 10 holds it bit-equal).
+# the A/B's branches (mode, profile): turbo runs fast's instantiation
+# (phase 10 holds it bit-equal)
 AB_MODES = (("array", "exact"), ("sequence", "exact"), ("array", "fast"),
             ("sequence", "fast"))
-AB_SHAPES = ((2048, 1024, 8192, "all"), (2048, 1024, 8192, "fastsmc"),
-             (0, 8192, 8192, "sums"), (0, 8192, 3137, "sums"))
+# the forward's A/B windows (t0, T, P): the main-path window and the ASMC
+# scale leg's batches (P=8192 and the last batch's 3,137); fast array also
+# at the fast ASMC leg's batch (FAST_CAP_PAIRS)
+AB_FWD_SHAPES = ((2048, 1024, 8192), (0, 8192, 8192), (0, 8192, 3137))
+# the backward control's window and outputs: both sums at the ASMC shape
+AB_BWD_SHAPE = (0, 8192, 8192)
 
 
-def ab_outputs(k, which: str):
-    if which == "all":
-        return k.BwdOutputs(**{n: True for n in k.KERNEL_OUTPUTS})
-    if which == "fastsmc":
-        return k.BwdOutputs(posterior=True, threshold_sums=True)
-    return k.BwdOutputs(posterior=False, posterior_sums=True,
-                        major_minor_sums=True)
+def split_arg(k, tables) -> dict:
+    """The forward's ``split`` argument for a side's kernels module ``k``
+    whose wrapper takes one (a parent from before the TF32 split has
+    none)."""
+    if "split" in inspect.signature(k.forward).parameters:
+        return {"split": tables.split}
+    return {}
 
 
 def unreduced(call, sides):
@@ -912,19 +930,40 @@ def unreduced(call, sides):
             k.block_reduce = f
 
 
+def equal_bits(a, b, chunk: int = 256) -> bool:
+    """torch.equal over chunks of sites: no full-size temporary."""
+    return a.shape == b.shape and all(
+        torch.equal(a[i:i + chunk], b[i:i + chunk])
+        for i in range(0, a.shape[0], chunk))
+
+
+def all_finite(a, chunk: int = 256) -> bool:
+    return all(bool(torch.isfinite(a[i:i + chunk]).all())
+               for i in range(0, a.shape[0], chunk))
+
+
+def ab_forward_cases():
+    """(mode, profile, t0, T, P) of the forward A/B."""
+    cases = [(m, p, *shape) for m, p in AB_MODES for shape in AB_FWD_SHAPES]
+    return cases + [("array", "fast", 0, 8192, FAST_CAP_PAIRS)]
+
+
 def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
-    """This tree's decode kernels against those of the checkout at
+    """This tree's forward kernel against the parent checkout's at
     ``parent``, each called through its own checkout's wrappers
     (``kernels.forward`` / ``backward_combine``, the parent's package
-    loaded under another name), on the same inputs: the backward in every
-    case of AB_MODES x AB_SHAPES, and the exact array forward at T=1024 and
-    T=8192 (P=8192) as the control, whose time should not move. Every
-    output, the sums' per-group partials included, must equal the parent's
-    bit for bit. Median of 10 calls a side at T=1024 and of 3 at T=8192,
-    the sides in turns (parent, this; this, parent; ...), ``reps`` times
-    each. Logs both builds' ptxas lines and SASS counts
-    (fastsmc_tpu_torch.probes.sass) for the backward instantiations at
-    this model's K."""
+    loaded under another name), on the same inputs: every forward branch
+    (AB_MODES) at AB_FWD_SHAPES and fast array at FAST_CAP_PAIRS, alpha
+    within KERNEL_ATOL (exact, raw) or APPROX_ATOL[mode] (fast, columns
+    normalised) of the parent's, and equal to it bit for bit on the bf16
+    array branch, which keeps the parent's FFMA kernel; the backward at
+    AB_BWD_SHAPE on one alpha (this tree's) fed to both sides as the
+    control, every output (the sums' per-group partials) equal to the
+    parent's bit for bit. Median of 10
+    calls a side at T=1024 and of 3 at T=8192, the sides in turns (parent,
+    this; this, parent; ...), ``reps`` times each. Logs both builds' ptxas
+    lines and SASS counts (fastsmc_tpu_torch.probes.sass) for both decode
+    kernels at this model's K."""
     import importlib
     import types
     from fastsmc_tpu_torch.probes import sass
@@ -939,15 +978,16 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
     log(f"[a/b] parent library built in {pinfo.seconds:.1f} s")
     rpw = decs["array", "exact"].tables.KP // 8
     for side, bi in (("parent", pinfo), ("this", info)):
-        for fn, r in sass.sass_report(bi.path, bi.log, "hmm_backward",
-                                      rpw).items():
-            log(f"[a/b] {side}: {fn}: ptxas {r['ptxas']}; SASS total "
-                f"{json.dumps(r['total'])}; densest loop "
-                f"{json.dumps(r['densest_loop'])}")
+        for kernel in DECODE_KERNELS:
+            for fn, r in sass.sass_report(bi.path, bi.log, kernel,
+                                          rpw).items():
+                log(f"[a/b] {side}: {fn}: ptxas {r['ptxas']}; SASS total "
+                    f"{json.dumps(r['total'])}; densest loop "
+                    f"{json.dumps(r['densest_loop'])}")
     sides = {"parent": pk, "this": kernels}
     res = {}
 
-    def turns(what, call, n):
+    def turns(what, call, n, check):
         times = {"parent": [], "this": []}
         for r in range(reps):
             order = ("parent", "this") if r % 2 == 0 else ("this", "parent")
@@ -955,57 +995,141 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
                 times[side].append(median_ms(lambda: call(sides[side]), n))
         res[what] = times
         log(f"[a/b] {what}, median ms of {n} per turn, in turns: "
-            f"{json.dumps(times)}; outputs equal bit for bit")
+            f"{json.dumps(times)}; {check}")
 
-    def same_bits(what, a, b):
+    rng = np.random.default_rng(5)
+    for mode, profile, t0, T, P in ab_forward_cases():
+        dec = decs[mode, profile]
+        t = dec.tables
+        obs, em, ops_f, _, mask, seq_f, _ = window_inputs(
+            dec, *random_pairs(rng, t.hap_bits.shape[0], P), t0, T)
+        what = f"{mode} {profile} forward, T={T} P={P}"
+
+        def fwd(k):
+            return k.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                             profile, **split_arg(k, t))
+
+        a = fwd(kernels)
+        b = fwd(pk)
+        if mode == "array" and profile != "exact":
+            # the bf16 array branch keeps the parent's FFMA kernel
+            err, tol = (0.0 if equal_bits(a, b) else float("inf")), 0.0
+            check = "alpha equal to the parent's bit for bit"
+        else:
+            if profile == "exact":
+                err, tol = (a - b).abs().max().item(), KERNEL_ATOL
+            else:
+                err, tol = alpha_err(a, b, 128), APPROX_ATOL[mode]
+            check = f"alpha within {err:.3g} of the parent's (atol {tol})"
+        finite = all_finite(a)
+        del a, b
+        torch.cuda.empty_cache()
+        if not finite or err > tol:
+            raise AssertionError(f"a/b: {what}: alpha differs from the "
+                                 f"parent's by {err} (atol {tol}), finite="
+                                 f"{finite}")
+        turns(what, fwd, 10 if T <= 1024 else 3, check)
+    for mode, profile in AB_MODES:
+        dec = decs[mode, profile]
+        t = dec.tables
+        t0, T, P = AB_BWD_SHAPE
+        obs, em, ops_f, ops_b, mask, seq_f, seq_b = window_inputs(
+            dec, *random_pairs(rng, t.hap_bits.shape[0], P), t0, T)
+        alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                                profile, t.split)
+        what = f"{mode} {profile} backward (control, both sums), T={T} P={P}"
+
+        def call(k):
+            return k.backward_combine(
+                t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11,
+                k.BwdOutputs(posterior=False, posterior_sums=True,
+                             major_minor_sums=True),
+                t.exp_times, seq_b, profile)
+
+        a, b = unreduced(lambda: [call(k) for k in sides.values()],
+                         sides.values())
         if a.keys() != b.keys() or not all(torch.equal(a[n], b[n])
                                            for n in a):
             raise AssertionError(f"a/b: {what} differs from the parent's "
                                  "bits")
+        del a, b
+        turns(what, call, 3, "outputs equal bit for bit")
+        del alpha
+        torch.cuda.empty_cache()
+    return res
 
-    rng = np.random.default_rng(5)
+
+def forward_reference_f64(kernels, Mf, em, obs, isp, ops, mask, seq,
+                          profile):
+    """kernels.forward_reference with every operator product summed in f64
+    (the operands as the profile rounds them), rounded once to f32: the
+    same recursion with sums free of f32 rounding."""
+    rnd = kernels._bf16 if profile != "exact" else (lambda x: x)
+    norm_block = profile != "exact" and seq is None
+    T = obs.shape[0]
+    M = rnd(Mf.index_select(0, ops).float()).double()
+    if seq is not None:
+        M2 = rnd(Mf.index_select(0, seq.rops).float()).double()
+    alpha = torch.empty((T, Mf.shape[-1], obs.shape[2]),
+                        dtype=kernels.alpha_dtype(profile), device=obs.device)
+    c = isp[:, None] * kernels._emission(em[0], obs[0])
+    c = c / c.sum(dim=0, keepdim=True)
+    alpha[0] = c
+    for t in range(1, T):
+        if seq is None:
+            c = (M[t] @ rnd(c).double()).float() \
+                * kernels._emission(em[t], obs[t])
+        else:
+            mid = (M[t] @ rnd(c).double()).float() * seq.hem[t][:, None]
+            c = (M2[t] @ rnd(mid).double()).float() \
+                * kernels._emission(em[t], obs[t])
+        if norm_block:
+            if t % kernels.BLOCK_SITES == kernels.BLOCK_SITES - 1:
+                c = c * (1.0 / c.sum(dim=0, keepdim=True))
+        else:
+            s = c.sum(dim=0, keepdim=True)
+            c = c * torch.where(mask[t] != 0, 1.0 / s, 1.0)
+        alpha[t] = c
+    return alpha
+
+
+def forward_sum_orders(decs, kernels) -> dict:
+    """How far each forward branch's kernel is from its plain f32 version,
+    beside how far the plain version with f64 sums (forward_reference_f64)
+    is from it, and the kernel from the f64 one: alpha with columns
+    normalised, largest difference over the pairs, at T=1024 (P=8187) and
+    at the ASMC shape (T=8192, P=8192). A tensor-core kernel adds with
+    truncation and with the operators' diagonal last; its readings against
+    the f32 sums are those of exact-arithmetic sums."""
+    rng = np.random.default_rng(17)
+    res = {}
     for mode, profile in AB_MODES:
         dec = decs[mode, profile]
         t = dec.tables
-        H = t.hap_bits.shape[0]
-        for t0, T, P, which in AB_SHAPES:
-            obs, em, ops_f, ops_b, mask, seq_f, seq_b = window_inputs(
-                dec, *random_pairs(rng, H, P), t0, T)
-            alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
-                                    profile)
-            what = f"{mode} {profile} backward ({which}), T={T} P={P}"
-
-            def call(k, which=which):
-                return k.backward_combine(
-                    t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11,
-                    ab_outputs(k, which), t.exp_times, seq_b, profile)
-
-            a, b = unreduced(lambda: [call(k) for k in sides.values()],
-                             sides.values())
-            same_bits(what, a, b)
-            del a, b
-            turns(what, call, 10 if T <= 1024 else 3)
-            if (mode, profile) == ("array", "exact") and which != "all" \
-                    and P == 8192:
-                what = f"array exact forward (control), T={T} P={P}"
-
-                def fwd(k):
-                    return {"alpha": k.forward(t.Mf, em, obs, t.isp, ops_f,
-                                               mask)}
-
-                same_bits(what, *(fwd(k) for k in sides.values()))
-                turns(what, fwd, 10 if T <= 1024 else 3)
-            del alpha
+        for t0, T, P in ((2048, 1024, 8187), (0, 8192, 8192)):
+            obs, em, ops_f, _, mask, seq_f, _ = window_inputs(
+                dec, *random_pairs(rng, t.hap_bits.shape[0], P), t0, T)
+            args = (t.Mf, em, obs, t.isp, ops_f, mask, seq_f, profile)
+            plain = kernels.forward_reference(*args)
+            f64 = forward_reference_f64(kernels, *args)
+            kern = kernels.forward(*args, split=t.split)
+            row = {"kernel vs plain": alpha_err(kern, plain, 256),
+                   "f64 sums vs plain": alpha_err(f64, plain, 256),
+                   "kernel vs f64 sums": alpha_err(kern, f64, 256)}
+            del plain, f64, kern
             torch.cuda.empty_cache()
+            res[f"{mode} {profile} T={T} P={P}"] = row
+            log(f"[a/b] forward sum orders, {mode} {profile}, T={T} P={P}, "
+                f"alpha (columns normalised): {json.dumps(row)}")
     return res
 
 
 def batch_invariance(decs, kernels, T: int = 1024, P: int = 8192,
                      n: int = 3137) -> None:
-    """The same ``n`` pairs as the first ``n`` of a P-pair backward launch
-    and alone: their posterior, threshold sums, means and MAP states equal
-    bit for bit, in array and sequence mode, exact and fast, on one
-    alpha."""
+    """The same ``n`` pairs as the first ``n`` of a P-pair launch and
+    alone: their alpha from the forward kernel, and on one alpha their
+    posterior, threshold sums, means and MAP states from the backward,
+    equal bit for bit, in array and sequence mode, exact and fast."""
     rng = np.random.default_rng(9)
     per_pair = ("posterior", "threshold_sums", "per_pair_mean",
                 "per_pair_map")
@@ -1016,8 +1140,14 @@ def batch_invariance(decs, kernels, T: int = 1024, P: int = 8192,
         t = dec.tables
         obs, em, ops_f, ops_b, mask, seq_f, seq_b = window_inputs(
             dec, *random_pairs(rng, t.hap_bits.shape[0], P), 2048, T)
-        alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
-                                profile)
+
+        def fwd(obs):
+            return kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                                   profile, t.split)
+
+        alpha = fwd(obs)
+        obs_n = obs[..., :n].contiguous()
+        same = {"alpha": torch.equal(alpha[..., :n], fwd(obs_n))}
 
         def bwd(obs, alpha):
             return kernels.backward_combine(
@@ -1025,8 +1155,9 @@ def batch_invariance(decs, kernels, T: int = 1024, P: int = 8192,
                 t.exp_times, seq_b, profile)
 
         full = bwd(obs, alpha)
-        alone = bwd(obs[..., :n].contiguous(), alpha[..., :n].contiguous())
-        same = {k: torch.equal(full[k][..., :n], alone[k]) for k in per_pair}
+        alone = bwd(obs_n, alpha[..., :n].contiguous())
+        same.update({k: torch.equal(full[k][..., :n], alone[k])
+                     for k in per_pair})
         log(f"[kernels] batch invariance, {mode} {profile}: pairs 0..{n - 1}"
             f" of a {P}-pair launch and alone, T={T}, bit-equal: "
             f"{json.dumps(same)}")
@@ -1437,7 +1568,9 @@ def build_log(info, KP: int, K: int) -> None:
                 full, *flags = flags
                 outs = "all outputs" if full else \
                     "posterior, threshold sums"
-            if kind != "reduce":
+            if "ffma" in fn:
+                kind += " (array, bf16, FFMA)"
+            elif kind != "reduce":
                 seq, approx = flags
                 kind += (f" ({'sequence' if seq else 'array'}, "
                          f"{'bf16' if approx else 'exact'}"
@@ -1509,6 +1642,7 @@ def main() -> int:
     build_log(info, dec.tables.KP, dec.K)
     if args.ab_parent:
         ab_parent(args.ab_parent, decs, kernels, info)
+        forward_sum_orders(decs, kernels)
         if args.ab_only:
             batch_invariance(decs, kernels)
             log("[a/b] --ab-only: stopped after the A/B")

@@ -124,36 +124,6 @@ struct Tiles {
       backward_shared(KP, FULL, SEQ, kTiles + kRaw, kBars);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One thread: the barrier expects `bytes` more, and the bulk-copy engine
-// moves them from global `src` to shared `dst` (both 16-byte aligned, a
-// multiple of 16 bytes), completing on the barrier.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
 // The raw tile as the product reads it: rounded to bf16 (fast, f32 stored)
 // or widened (turbo, bf16 stored), the values stage_operator_bf16 gives.
 __device__ __forceinline__ void round_tile(float* __restrict__ dst,
@@ -181,8 +151,8 @@ __device__ __forceinline__ void round_tile(float* __restrict__ dst,
 
 // acc[i] = sum_j sM[k_i][j] * sV[j][lane] for this thread's rows
 // k_i = warp + kWarps * i: one fmaf chain over j ascending from 0 per
-// accumulator, as matvec (hmm_common.cuh) takes it, each operator row read
-// as 16-byte broadcasts, four j a load.
+// accumulator, each operator row read as 16-byte broadcasts, four j a
+// load.
 template <int RPW>
 __device__ __forceinline__ void product(float (&acc)[RPW],
                                         const float* __restrict__ sM,

@@ -1,18 +1,20 @@
 // Shared pieces of the two decode kernels (hmm_forward.cu, hmm_backward.cu).
 //
-// Layout of one thread block: kWarps warps x kPairs lanes. Lane l owns pair
-// column p = blockIdx.x * kPairs + l; warp w owns the state rows
+// Layout of one backward thread block: kWarps warps x kPairs lanes. Lane l
+// owns pair column p = blockIdx.x * kPairs + l; warp w owns the state rows
 // k = w, w + kWarps, ..., w + kWarps * (RPW - 1), so KP = kWarps * RPW
-// padded states (K=69 -> RPW=9, KP=72). The genome axis runs as a loop
-// inside the block: blocks carry nothing between them.
+// padded states (K=69 -> RPW=9, KP=72). The forward kernel lays its pairs
+// out on tensor-core fragments instead (hmm_forward.cu). The genome axis
+// runs as a loop inside the block: blocks carry nothing between them.
 //
-// All arithmetic is float32 with fmaf in the operator products; there is no
-// fast-math, no __fdividef and no TF32 anywhere on this path. On the
-// approximate profiles (fast, turbo) both operands of every product are
-// rounded to bf16 (nearest even) before the f32 fmaf, which is the TPU's
-// single-pass matrix unit (fastsmc_tpu/engine/kernels.py:59-73): a product
-// of two bf16 values is exact in f32, so only the order of the f32 sums
-// differs from the TPU's.
+// The backward's arithmetic is float32 with fmaf in the operator products;
+// there is no fast-math and no __fdividef on this path. On the approximate
+// profiles (fast, turbo) both operands of every product are rounded to bf16
+// (nearest even) before the f32 product, which is the TPU's single-pass
+// matrix unit (fastsmc_tpu/engine/kernels.py:59-73): a product of two bf16
+// values is exact in f32, so only the order of the f32 sums differs from
+// the TPU's. The forward's exact profile splits each operand into two TF32
+// values (3xTF32, never a single TF32 pass).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,14 +68,6 @@ template <bool APPROX>
 __device__ __forceinline__ AlphaT<APPROX> float_to_alpha(float v) {
   if constexpr (APPROX) return __float2bfloat16_rn(v);
   else return v;
-}
-
-// Dynamic shared memory a kernel needs for KP states and n_red reduction
-// buffers: the staged operator [KP][KP], one [KP][kPairs] operand and the
-// [kWarps][kPairs] partial column sums.
-inline size_t shared_bytes(int KP, int n_red) {
-  return sizeof(float) * (static_cast<size_t>(KP) * KP + KP * kPairs +
-                          n_red * kWarps * kPairs);
 }
 
 // Emission of state k for one pair (HMM.cpp:827-828):
@@ -141,24 +135,6 @@ __device__ __forceinline__ void stage(float* __restrict__ sM,
   else stage_operator(sM, M, op, G, KP);
 }
 
-// acc[i] = sum_j sM[k_i][j] * sV[j][lane], j ascending, for this thread's rows.
-template <int RPW>
-__device__ __forceinline__ void matvec(float (&acc)[RPW],
-                                       const float* __restrict__ sM,
-                                       const float* __restrict__ sV, int lane,
-                                       int warp) {
-  constexpr int KP = RPW * kWarps;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < KP; ++j) {
-    const float v = sV[j * kPairs + lane];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-      acc[i] = fmaf(sM[(warp + kWarps * i) * KP + j], v, acc[i]);
-  }
-}
-
 // Sum of `part` over the block's warps for this thread's pair column.
 // Contains the barrier that orders every earlier shared-memory read of this
 // step before the writes that follow it.
@@ -178,6 +154,38 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = kPairs / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Bulk copies into shared memory, completed on an mbarrier (both kernels'
+// operator rings).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: the barrier expects `bytes` more, and the bulk-copy engine
+// moves them from global `src` to shared `dst` (both 16-byte aligned, a
+// multiple of 16 bytes), completing on the barrier.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
 }
 
 // Call `f(std::integral_constant<int, RPW>{})` for the row count `rpw` in

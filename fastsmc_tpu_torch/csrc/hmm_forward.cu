@@ -11,31 +11,325 @@
 //                                                             marker step),
 // where norm multiplies by 1/sum_k where mask[t] != 0 (the reference's
 // scalingSkip) and alpha is stored [T][KP][P] with P contiguous. On the
-// approximate profiles (hmm_common.cuh) the product operands are rounded to
-// bf16, alpha is stored as bf16, and in array mode norm runs only at the
-// last site of each kBlockSites-site block (kernels.py:135-148).
+// approximate profiles the product operands are rounded to bf16, alpha is
+// stored as bf16, and in array mode norm runs only at the last site of
+// each kBlockSites-site block (kernels.py:135-148).
 //
 // Bound on an H100: the per-site K x K operator product (two in sequence
-// mode) is ~5.2k FMA per pair and site against ~300 bytes of alpha written
-// (~150 in bf16), so the kernel is bound by FP32 issue and shared-memory
-// bandwidth, not device memory. Design: one block per 32 pairs walks the
-// whole window; the carry stays on chip (the normalised carry in shared
-// memory, each thread's rows in registers), the site's operator(s) are
-// staged once in shared memory and read as a warp-wide broadcast, and the
-// only device-memory traffic per site is the operators (L2 hits: the
-// panel's operator table is a few MB), one emission row and the coalesced
-// alpha stores. In sequence mode the half-step's result passes through
-// shared memory as the second product's operand, one barrier more per site.
-// Later work: tensor-core products for the bf16 profiles, double-buffered
-// operator loads, more pairs per thread.
+// mode), ~5.2k multiply-adds per pair and site, against ~300 bytes of alpha
+// written (~150 in bf16). Fed from shared memory to the FP32 pipe, one
+// 32-bit word a lane a clock caps such a product at 22.5 % of FP32 issue
+// (PERF.md §6), so the exact branches and the bf16 sequence branch run the
+// product on the tensor cores with mma.sync:
+//   C[p][i] = sum_j A[p][j] * B[j][i],  A = the carry (pairs x states),
+//   B = Mf[op]^T, so the operator's row-major [i][j] is the "col" B operand.
+// Pairs are the M dimension: a warp owns one 16-pair m-tile and all KP
+// states (KP / 8 n-tiles), so each pair's sum over states stays inside the
+// warp (the thread's own values, then two xor shuffles over its quad) and
+// no block-wide barrier sits on a site's chain.
+//   - exact: 3xTF32 on m16n8k8. Each operand is split x = hi + lo, both
+//     rounded to TF32 (cvt.rna); the operator's split is made once on the
+//     host (DecodeTables.Mf_hi / Mf_lo), the carry's in registers; the
+//     small products lo*hi + hi*lo and the large hi*hi accumulate in f32
+//     in two chains, added at the end. An accumulator holds
+//     states 2q, 2q+1 of each 8-state group where the A fragment wants q,
+//     q+4: the k index is read through that fixed permutation, which makes
+//     the B fragment two adjacent floats of an operator row (one 8-byte
+//     load) and needs no change to the table.
+//   - bf16 sequence mode: m16n8k16 (and one m16n8k8 step where KP / 8 is
+//     odd, so K is padded only to a multiple of 8) with f32 accumulation.
+//     The accumulators of two adjacent n-tiles, rounded to bf16, are the A
+//     fragment of the next product's k-step: the carry never leaves the
+//     registers, nor does the half-step.
+//   - both: the operator's diagonal is added last by an f32 fmaf (below).
+// The operators reach shared memory by bulk copy (cp.async.bulk, completed
+// on a "full" mbarrier per ring slot) from one producer warp that runs
+// ahead of the consumer warps by up to the ring's depth; each consumer
+// thread arrives on the slot's "empty" mbarrier when it has read it, and
+// the producer refills the slot only then. A ring entry is one operator
+// (array: one a site; sequence: the half-step's, then the marker step's)
+// with the site's emission rows [3][KP] (sequence half-step entries: the
+// homozygous emissions [KP]) beside it. Each site's observations are loaded
+// a site ahead. Alpha is stored straight from the accumulators: a quad-row
+// group of one state is 8 consecutive pairs. Every sum is in a fixed order
+// and no sum crosses a warp or a pair, so two runs give the same bits and a
+// pair's alpha does not depend on the batch around it.
+// The bf16 array branch keeps the FFMA kernel (hmm_forward_ffma_kernel):
+// on tensor cores it cannot hold its gate against the plain version.
 #include "hmm_common.cuh"
 
 namespace fastsmc {
 namespace {
 
-template <int RPW, bool SEQ, bool APPROX>
-__global__ void __launch_bounds__(kThreads)
-    hmm_forward_kernel(const float* __restrict__ Mf, int G,
+constexpr int kWarpPairs = 16;  // one mma m-tile
+constexpr int kMaxFwdWarps = 4;  // consumer warps a block, at most
+constexpr int kMaxRing = 4;
+// Dynamic shared memory a block may take on an H100 (227 KB).
+constexpr size_t kFwdMaxShared = 232448;
+
+// Bytes of one ring entry: the operator tile(s) and three KP-float rows.
+__host__ __device__ constexpr size_t tile_bytes(int KP, bool approx) {
+  return (approx ? 1 : 2) * sizeof(float) * static_cast<size_t>(KP) * KP;
+}
+__host__ __device__ constexpr size_t entry_bytes(int KP, bool approx) {
+  return tile_bytes(KP, approx) + 3 * sizeof(float) * KP;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Two floats rounded to bf16 (nearest even) in one word, `lo` in the low
+// half: the order of k in a bf16x2 fragment register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16_k16(float (&d)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// The fragments of one thread (lane = 4 g + q). Carry and accumulator
+// c[nt][r]: pair row g (r = 0, 1) or g + 8 (r = 2, 3) of the warp's
+// m-tile, state 8 nt + 2 q + (r & 1).
+//
+// The diagonal M[i][i] of every operator is left out of the tensor-core
+// sums and added last, per state, by one f32 fmaf. The tensor cores add a
+// k-step's products and the accumulator with truncation (toward zero), so
+// each sum they hold loses up to a few units in its last place, always
+// downward; the operators are near the identity, and with the dominant
+// term inside, that bias is relative to the whole sum and the recursion
+// amplifies it (alpha 1.0e-5 from the plain f32 version at T=8192 on an
+// H100; PERF.md §6). Off the diagonal it is relative to the small
+// off-diagonal part only (4.9e-6; an f64-summed plain version reads the
+// same).
+
+// acc = carry @ M^T on 3xTF32. `hi`, `lo`: the operator's [KP][KP] split.
+template <int NT>
+__device__ __forceinline__ void product_3xtf32(float (&acc)[NT][4],
+                                               const float (&c)[NT][4],
+                                               const float* __restrict__ hi,
+                                               const float* __restrict__ lo,
+                                               int g, int q) {
+  constexpr int KP = 8 * NT;
+  float sm[NT][4];  // the small terms: a chain of their own
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = sm[nt][r] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    // A fragment (g, q), (g+8, q), (g, q+4), (g+8, q+4): logical k q is
+    // state 8 kk + 2 q, logical k q + 4 is state 8 kk + 2 q + 1
+    const float x[4] = {c[kk][0], c[kk][2], c[kk][1], c[kk][3]};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      ah[r] = tf32_rna(x[r]);
+      al[r] = tf32_rna(x[r] - __uint_as_float(ah[r]));
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      // B fragment (q, g), (q+4, g) under the same permutation: M[8 nt +
+      // g][8 kk + 2 q] and the float after it
+      const int o = (8 * nt + g) * KP + 8 * kk + 2 * q;
+      const float2 h = *reinterpret_cast<const float2*>(hi + o);
+      const float2 l = *reinterpret_cast<const float2*>(lo + o);
+      uint32_t h0 = __float_as_uint(h.x), h1 = __float_as_uint(h.y);
+      uint32_t l0 = __float_as_uint(l.x), l1 = __float_as_uint(l.y);
+      if (nt == kk) {  // the diagonal M[8 nt + g][8 nt + g] comes last
+        if (g == 2 * q) h0 = l0 = 0u;
+        if (g == 2 * q + 1) h1 = l1 = 0u;
+      }
+      mma_tf32(sm[nt], al, h0, h1);
+      mma_tf32(sm[nt], ah, l0, l1);
+      mma_tf32(acc[nt], ah, h0, h1);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] += sm[nt][r];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = (8 * nt + 2 * q + h) * (KP + 1);
+      const float d = hi[k] + lo[k];  // exact: lo lies below hi's last bit
+      acc[nt][h] = fmaf(d, c[nt][h], acc[nt][h]);
+      acc[nt][2 + h] = fmaf(d, c[nt][2 + h], acc[nt][2 + h]);
+    }
+}
+
+// Two adjacent operator values (k, k + 1) of one row as a bf16x2 word: the
+// bf16 table's own (turbo), or the f32 table's rounded (fast).
+template <bool BF16_STORE>
+__device__ __forceinline__ uint32_t operator_pair(const void* tile, int o) {
+  if constexpr (BF16_STORE) {
+    return *reinterpret_cast<const uint32_t*>(
+        static_cast<const __nv_bfloat16*>(tile) + o);
+  } else {
+    const float2 v =
+        *reinterpret_cast<const float2*>(static_cast<const float*>(tile) + o);
+    return pack_bf16(v.x, v.y);
+  }
+}
+
+// The operator's element `k` as the bf16 products read it.
+template <bool BF16_STORE>
+__device__ __forceinline__ float operator_value(const void* tile, int k) {
+  if constexpr (BF16_STORE)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(tile)[k]);
+  else
+    return round_bf16(static_cast<const float*>(tile)[k]);
+}
+
+// acc = bf16(carry) @ bf16(M)^T with f32 accumulation.
+template <int NT, bool BF16_STORE>
+__device__ __forceinline__ void product_bf16(float (&acc)[NT][4],
+                                             const float (&c)[NT][4],
+                                             const void* tile, int g, int q) {
+  constexpr int KP = 8 * NT;
+  // the half of a B word (k = 2q, 2q+1 of an 8-state group) that holds the
+  // diagonal of row g of that group: cleared, the diagonal comes last
+  const uint32_t dmask = (g == 2 * q ? 0xffff0000u : 0xffffffffu) &
+                         (g == 2 * q + 1 ? 0x0000ffffu : 0xffffffffu);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    // states 16 kk .. 16 kk + 15: the accumulators of n-tiles 2 kk, 2 kk + 1
+    const uint32_t a0 = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    const uint32_t a1 = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    const uint32_t a2 = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    const uint32_t a3 = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int o = (8 * nt + g) * KP + 16 * kk + 2 * q;
+      uint32_t b0 = operator_pair<BF16_STORE>(tile, o);
+      uint32_t b1 = operator_pair<BF16_STORE>(tile, o + 8);
+      if (nt == 2 * kk) b0 &= dmask;
+      if (nt == 2 * kk + 1) b1 &= dmask;
+      mma_bf16_k16(acc[nt], a0, a1, a2, a3, b0, b1);
+    }
+  }
+  if constexpr (NT % 2 == 1) {
+    // the last 8 states: one k8 step, no padding to a multiple of 16
+    const uint32_t a0 = pack_bf16(c[NT - 1][0], c[NT - 1][1]);
+    const uint32_t a1 = pack_bf16(c[NT - 1][2], c[NT - 1][3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t b0 = operator_pair<BF16_STORE>(
+          tile, (8 * nt + g) * KP + 8 * (NT - 1) + 2 * q);
+      if (nt == NT - 1) b0 &= dmask;
+      mma_bf16_k8(acc[nt], a0, a1, b0);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float d =
+          operator_value<BF16_STORE>(tile, (8 * nt + 2 * q + h) * (KP + 1));
+      acc[nt][h] = fmaf(d, round_bf16(c[nt][h]), acc[nt][h]);
+      acc[nt][2 + h] = fmaf(d, round_bf16(c[nt][2 + h]), acc[nt][2 + h]);
+    }
+}
+
+// The product on ring entry `e` as the profile computes it.
+template <int NT, bool APPROX>
+__device__ __forceinline__ void product(float (&acc)[NT][4],
+                                        const float (&c)[NT][4],
+                                        const char* e, bool op_bf16, int g,
+                                        int q) {
+  constexpr int KP = 8 * NT;
+  if constexpr (APPROX) {
+    if (op_bf16)
+      product_bf16<NT, true>(acc, c, e, g, q);
+    else
+      product_bf16<NT, false>(acc, c, e, g, q);
+  } else {
+    const float* hi = reinterpret_cast<const float*>(e);
+    product_3xtf32<NT>(acc, c, hi, hi + KP * KP, g, q);
+  }
+}
+
+// Multiply c by 1/(its sum over states) for each of the thread's two
+// pairs: the thread's states in order, then the quad's xor butterfly (all
+// four lanes get the same bits).
+template <int NT>
+__device__ __forceinline__ void normalise(float (&c)[NT][4]) {
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    sa += c[nt][0];
+    sa += c[nt][1];
+    sb += c[nt][2];
+    sb += c[nt][3];
+  }
+  sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+  sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+  sa += __shfl_xor_sync(0xffffffffu, sa, 2);
+  sb += __shfl_xor_sync(0xffffffffu, sb, 2);
+  const float ia = 1.f / sa, ib = 1.f / sb;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    c[nt][0] *= ia;
+    c[nt][1] *= ia;
+    c[nt][2] *= ib;
+    c[nt][3] *= ib;
+  }
+}
+
+// One thread's observations of one site: pair rows g and g + 8.
+struct Obs {
+  float oza, oha, ozb, ohb;
+};
+
+__device__ __forceinline__ Obs load_obs(const float* __restrict__ obs, int t,
+                                        size_t P, int pa, int pb, bool la,
+                                        bool lb) {
+  const float* o = obs + 2 * static_cast<size_t>(t) * P;
+  return Obs{la ? o[pa] : 1.f, la ? o[P + pa] : 0.f, lb ? o[pb] : 1.f,
+             lb ? o[P + pb] : 0.f};
+}
+
+// The block: 1 to kMaxFwdWarps consumer warps of 16 pairs each (see
+// forward_warps), then one producer warp whose lane 0 issues the ring's
+// bulk copies. Shared memory: `ring` entries of entry_bytes(KP, APPROX),
+// then `ring` full and `ring` empty mbarriers.
+template <int NT, bool SEQ, bool APPROX>
+__global__ void __launch_bounds__((kMaxFwdWarps + 1) * 32)
+    hmm_forward_kernel(const float* __restrict__ Mf,   // [G][KP][KP]; exact: hi
+                       const float* __restrict__ Mlo,  // exact: lo, else null
+                       int G,
                        const float* __restrict__ em,   // [T][3][KP]
                        const float* __restrict__ obs,  // [T][2][P]
                        const float* __restrict__ isp,  // [KP]
@@ -45,17 +339,214 @@ __global__ void __launch_bounds__(kThreads)
                        int T, int P,
                        const int* __restrict__ rops,   // [T], SEQ only
                        const float* __restrict__ hem,  // [T][KP], SEQ only
-                       bool op_bf16) {                 // Mf is bf16 (turbo)
+                       bool op_bf16,                   // Mf is bf16 (turbo)
+                       int ring) {
+  static_assert(SEQ || !APPROX, "the bf16 array branch is the FFMA kernel");
+  constexpr int KP = 8 * NT;
+  constexpr size_t kTile = tile_bytes(KP, APPROX);
+  constexpr size_t kEntry = entry_bytes(KP, APPROX);
+  constexpr int kCopies = APPROX ? 2 : 3;  // bulk copies an entry
+  extern __shared__ float4 smem4[];
+  char* entries = reinterpret_cast<char*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(entries + ring * kEntry);
+  uint64_t* empty = full + ring;
+  const int n_warps = blockDim.x / 32 - 1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n_entries = (T - 1) * (SEQ ? 2 : 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(&full[s])), "r"(kCopies) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(&empty[s])), "r"(32 * n_warps)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // barriers initialised; the only block-wide barrier
+
+  if (warp == n_warps) {
+    // producer: entry n into slot n % ring once every consumer has
+    // released that slot's previous entry
+    if (lane == 0) {
+      for (int n = 0; n < n_entries; ++n) {
+        const int s = n % ring;
+        const int use = n / ring;
+        if (use > 0) wait_phase(&empty[s], (use - 1) & 1);
+        const int site = 1 + (SEQ ? n / 2 : n);
+        const bool half_step = SEQ && (n & 1) == 0;
+        const int op = SEQ && !half_step ? rops[site] : ops[site];
+        if (op < 0 || op >= G) __trap();  // a caller bug: stop the kernel
+        char* e = entries + s * kEntry;
+        const size_t at = static_cast<size_t>(op) * KP * KP;
+        if constexpr (APPROX) {
+          if (op_bf16)
+            bulk_copy(e, reinterpret_cast<const __nv_bfloat16*>(Mf) + at,
+                      sizeof(__nv_bfloat16) * KP * KP, &full[s]);
+          else
+            bulk_copy(e, Mf + at, sizeof(float) * KP * KP, &full[s]);
+        } else {
+          bulk_copy(e, Mf + at, sizeof(float) * KP * KP, &full[s]);
+          bulk_copy(e + kTile / 2, Mlo + at, sizeof(float) * KP * KP,
+                    &full[s]);
+        }
+        if (half_step)
+          bulk_copy(e + kTile, hem + static_cast<size_t>(site) * KP,
+                    sizeof(float) * KP, &full[s]);
+        else
+          bulk_copy(e + kTile, em + static_cast<size_t>(site) * 3 * KP,
+                    sizeof(float) * 3 * KP, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int pa = (blockIdx.x * n_warps + warp) * kWarpPairs + g;
+  const int pb = pa + 8;
+  const bool la = pa < P, lb = pb < P;
+  const size_t Pz = static_cast<size_t>(P);
+
+  auto store = [&](int t, const float (&c)[NT][4]) {
+    AlphaT<APPROX>* alpha_t = alpha + static_cast<size_t>(t) * KP * Pz;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t row = static_cast<size_t>(8 * nt + 2 * q + h) * Pz;
+        if (la) alpha_t[row + pa] = float_to_alpha<APPROX>(c[nt][h]);
+        if (lb) alpha_t[row + pb] = float_to_alpha<APPROX>(c[nt][2 + h]);
+      }
+  };
+  // ring entry n: wait until it has landed; release it once read
+  auto landed = [&](int n) -> const char* {
+    const int s = n % ring;
+    wait_phase(&full[s], (n / ring) & 1);
+    return entries + s * kEntry;
+  };
+  auto release = [&](int n) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                 :: "r"(smem_u32(&empty[n % ring])) : "memory");
+  };
+
+  float c[NT][4];
+  {
+    // site 0 (kernels.py:152-156)
+    const Obs o = load_obs(obs, 0, Pz, pa, pb, la, lb);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 8 * nt + 2 * q + h;
+        c[nt][h] = isp[k] * emission(em, k, KP, o.oza, o.oha);
+        c[nt][2 + h] = isp[k] * emission(em, k, KP, o.ozb, o.ohb);
+      }
+    normalise<NT>(c);
+    store(0, c);
+  }
+  Obs o = T > 1 ? load_obs(obs, 1, Pz, pa, pb, la, lb) : Obs{};
+  for (int t = 1; t < T; ++t) {
+    // the next site's observations and mask, loaded before this site's
+    // product so that their latency hides behind it
+    const Obs o_next =
+        t + 1 < T ? load_obs(obs, t + 1, Pz, pa, pb, la, lb) : Obs{};
+    const bool scale = mask[t] != 0;  // kernels.py:147
+    int n = (t - 1) * (SEQ ? 2 : 1);
+    float acc[NT][4];
+    const char* e = landed(n);
+    product<NT, APPROX>(acc, c, e, op_bf16, g, q);
+    if constexpr (SEQ) {
+      // homozygous half-step (kernels.py:129-133); its result is the
+      // marker step's carry
+      const float* hem_t = reinterpret_cast<const float*>(e + kTile);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 hv =
+            *reinterpret_cast<const float2*>(hem_t + 8 * nt + 2 * q);
+        c[nt][0] = acc[nt][0] * hv.x;
+        c[nt][1] = acc[nt][1] * hv.y;
+        c[nt][2] = acc[nt][2] * hv.x;
+        c[nt][3] = acc[nt][3] * hv.y;
+      }
+      release(n);
+      e = landed(++n);
+      product<NT, APPROX>(acc, c, e, op_bf16, g, q);
+    }
+    const float* em_t = reinterpret_cast<const float*>(e + kTile);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int k = 8 * nt + 2 * q;
+      const float2 e0 = *reinterpret_cast<const float2*>(em_t + k);
+      const float2 e1 = *reinterpret_cast<const float2*>(em_t + KP + k);
+      const float2 e2 = *reinterpret_cast<const float2*>(em_t + 2 * KP + k);
+      // emission(): em1 + em0minus1 * oz + em2minus0 * oh (HMM.cpp:827-828)
+      c[nt][0] = acc[nt][0] * (e0.x + e1.x * o.oza + e2.x * o.oha);
+      c[nt][1] = acc[nt][1] * (e0.y + e1.y * o.oza + e2.y * o.oha);
+      c[nt][2] = acc[nt][2] * (e0.x + e1.x * o.ozb + e2.x * o.ohb);
+      c[nt][3] = acc[nt][3] * (e0.y + e1.y * o.ozb + e2.y * o.ohb);
+    }
+    release(n);
+    if (scale) normalise<NT>(c);
+    store(t, c);
+    o = o_next;
+  }
+}
+
+// The bf16 array branch: the FFMA kernel. On tensor cores this branch moves
+// alpha as far from the plain f32 version as a plain version with f64 sums
+// does (6.0e-3 to 1.7e-2 at T=8192, P=8192 over three random batches, with
+// the diagonal added last, against APPROX_ATOL's 5e-3 on an H100; PERF.md
+// §6): the carry, rounded to bf16 at every site and
+// normalised only once a block, follows whichever f32 sums it is given,
+// and only sums in the plain version's order (one fmaf chain over j
+// ascending, as below) stay on its trajectory. One block per 32 pairs
+// (lane = pair) walks the window; warp w owns the state rows w, w + 8, ...;
+// the operator is staged in shared memory each site.
+
+// Dynamic shared memory of the FFMA kernel for KP states and n_red
+// reduction buffers: the staged operator [KP][KP], one [KP][kPairs]
+// operand and the [kWarps][kPairs] partial column sums.
+inline size_t shared_bytes(int KP, int n_red) {
+  return sizeof(float) * (static_cast<size_t>(KP) * KP + KP * kPairs +
+                          n_red * kWarps * kPairs);
+}
+
+// acc[i] = sum_j sM[k_i][j] * sV[j][lane], j ascending, for this thread's rows.
+template <int RPW>
+__device__ __forceinline__ void matvec(float (&acc)[RPW],
+                                       const float* __restrict__ sM,
+                                       const float* __restrict__ sV, int lane,
+                                       int warp) {
   constexpr int KP = RPW * kWarps;
-  // block normalisation: the approximate profiles in array mode
-  // (kernels.py:396-398)
-  constexpr bool kNormBlock = APPROX && !SEQ;
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < KP; ++j) {
+    const float v = sV[j * kPairs + lane];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+      acc[i] = fmaf(sM[(warp + kWarps * i) * KP + j], v, acc[i]);
+  }
+}
+
+template <int RPW>
+__global__ void __launch_bounds__(kThreads)
+    hmm_forward_ffma_kernel(const float* __restrict__ Mf, int G,
+                            const float* __restrict__ em,   // [T][3][KP]
+                            const float* __restrict__ obs,  // [T][2][P]
+                            const float* __restrict__ isp,  // [KP]
+                            const int* __restrict__ ops,    // [T]
+                            __nv_bfloat16* __restrict__ alpha,  // [T][KP][P]
+                            int T, int P,
+                            bool op_bf16) {  // Mf is bf16 (turbo)
+  constexpr int KP = RPW * kWarps;
   extern __shared__ float4 smem4[];
   float* sM = reinterpret_cast<float*>(smem4);  // [KP][KP] operator of site t
   float* sC = sM + KP * KP;                     // [KP][kPairs] carry alpha_{t-1}
   float* sRed = sC + KP * kPairs;               // [kWarps][kPairs]
-  float* sM2 = sRed + kWarps * kPairs;          // SEQ: [KP][KP] rate operator
-  float* sMid = sM2 + KP * KP;                  // SEQ: [KP][kPairs] half-step
   const int lane = threadIdx.x % kPairs;
   const int warp = threadIdx.x / kPairs;
   const int p = blockIdx.x * kPairs + lane;
@@ -79,27 +570,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < RPW; ++i) {
       const int k = warp + kWarps * i;
       c[i] = c[i] / s;
-      if (live) alpha[k * Pz + p] = float_to_alpha<APPROX>(c[i]);
-      sC[k * kPairs + lane] = operand<APPROX>(c[i]);
+      if (live) alpha[k * Pz + p] = float_to_alpha<true>(c[i]);
+      sC[k * kPairs + lane] = operand<true>(c[i]);
     }
   }
   for (int t = 1; t < T; ++t) {
-    stage<APPROX>(sM, Mf, op_bf16, ops[t], G, KP);
-    if constexpr (SEQ) stage<APPROX>(sM2, Mf, op_bf16, rops[t], G, KP);
-    __syncthreads();  // operators and carry visible; last step's sRed reads done
+    stage<true>(sM, Mf, op_bf16, ops[t], G, KP);
+    __syncthreads();  // operator and carry visible; last step's sRed reads done
     float acc[RPW];
     matvec<RPW>(acc, sM, sC, lane, warp);
-    if constexpr (SEQ) {
-      // homozygous half-step (kernels.py:129-133)
-      const float* hem_t = hem + static_cast<size_t>(t) * KP;
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const int k = warp + kWarps * i;
-        sMid[k * kPairs + lane] = operand<APPROX>(acc[i] * hem_t[k]);
-      }
-      __syncthreads();  // half-step visible; last step's sMid reads done
-      matvec<RPW>(acc, sM2, sMid, lane, warp);
-    }
     const float* em_t = em + static_cast<size_t>(t) * 3 * KP;
     const float oz = live ? obs[(2 * static_cast<size_t>(t)) * Pz + p] : 1.f;
     const float oh = live ? obs[(2 * static_cast<size_t>(t) + 1) * Pz + p] : 0.f;
@@ -109,31 +588,28 @@ __global__ void __launch_bounds__(kThreads)
       c[i] = acc[i] * emission(em_t, warp + kWarps * i, KP, oz, oh);
       part += c[i];
     }
+    // block normalisation (kernels.py:145, :396-398)
     float inv;
-    if constexpr (kNormBlock) {
-      if (t % kBlockSites == kBlockSites - 1) {
-        inv = 1.f / column_sum(sRed, part, lane, warp);  // kernels.py:145
-      } else {
-        __syncthreads();  // every warp's reads of sC done before it is rewritten
-        inv = 1.f;
-      }
+    if (t % kBlockSites == kBlockSites - 1) {
+      inv = 1.f / column_sum(sRed, part, lane, warp);
     } else {
-      const float s = column_sum(sRed, part, lane, warp);
-      inv = mask[t] != 0 ? 1.f / s : 1.f;  // kernels.py:147
+      __syncthreads();  // every warp's reads of sC done before it is rewritten
+      inv = 1.f;
     }
-    AlphaT<APPROX>* alpha_t = alpha + static_cast<size_t>(t) * KP * Pz;
+    __nv_bfloat16* alpha_t = alpha + static_cast<size_t>(t) * KP * Pz;
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int k = warp + kWarps * i;
       c[i] = c[i] * inv;
-      if (live) alpha_t[k * Pz + p] = float_to_alpha<APPROX>(c[i]);
-      sC[k * kPairs + lane] = operand<APPROX>(c[i]);
+      if (live) alpha_t[k * Pz + p] = float_to_alpha<true>(c[i]);
+      sC[k * kPairs + lane] = operand<true>(c[i]);
     }
   }
 }
 
 struct ForwardArgs {
   const float* Mf;
+  const float* Mlo;
   int G;
   const float* em;
   const float* obs;
@@ -145,27 +621,77 @@ struct ForwardArgs {
   void* alpha;
   int T, P;
   bool op_bf16;
+  int sms;  // the device's multiprocessors
 };
 
-template <int RPW, bool SEQ, bool APPROX>
-int launch_forward(const ForwardArgs& a, cudaStream_t stream) {
+// Consumer warps a block: 4 where the batch gives each multiprocessor at
+// least three 16-pair warps, 2 below that (more blocks, fewer warps
+// sharing an SM's shared-memory bandwidth; PERF.md §6 has the timings of
+// 1, 2 and 4).
+int forward_warps(int P, int sms) {
+  const int warps = (P + kWarpPairs - 1) / kWarpPairs;
+  return warps >= 3 * sms ? 4 : 2;
+}
+
+// Ring depth: as many entries (at most kMaxRing) as fit beside the other
+// blocks an SM must hold for the whole grid to be resident; at least one.
+int ring_depth(size_t entry, int blocks, int sms) {
+  const int per_sm = (blocks + sms - 1) / sms;
+  const size_t room = kFwdMaxShared / (per_sm > 0 ? per_sm : 1);
+  const size_t bars = 2 * sizeof(uint64_t) * kMaxRing;
+  int r = room > bars ? static_cast<int>((room - bars) / entry) : 0;
+  if (r > kMaxRing) r = kMaxRing;
+  if (r < 1) r = 1;
+  return r;
+}
+
+// The FFMA kernel: the bf16 array branch.
+template <int RPW>
+int launch_forward_ffma(const ForwardArgs& a, cudaStream_t stream) {
   constexpr int KP = RPW * kWarps;
-  const size_t smem =
-      shared_bytes(KP, 1) + (SEQ ? sizeof(float) * (KP * KP + KP * kPairs) : 0);
-  auto* kernel = hmm_forward_kernel<RPW, SEQ, APPROX>;
+  const size_t smem = shared_bytes(KP, 1);
+  auto* kernel = hmm_forward_ffma_kernel<RPW>;
   const int rc = allow_shared(kernel, smem);
   if (rc != 0) return rc;
   const dim3 grid((a.P + kPairs - 1) / kPairs);
   kernel<<<grid, kThreads, smem, stream>>>(
-      a.Mf, a.G, a.em, a.obs, a.isp, a.ops, a.mask,
-      static_cast<AlphaT<APPROX>*>(a.alpha), a.T, a.P, a.rops, a.hem,
-      a.op_bf16);
+      a.Mf, a.G, a.em, a.obs, a.isp, a.ops,
+      static_cast<__nv_bfloat16*>(a.alpha), a.T, a.P, a.op_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor-core kernel: the exact branches and the bf16 sequence branch.
+template <int NT, bool SEQ, bool APPROX>
+int launch_forward_mma(const ForwardArgs& a, cudaStream_t stream) {
+  constexpr int KP = 8 * NT;
+  constexpr size_t entry = entry_bytes(KP, APPROX);
+  static_assert(entry + 2 * sizeof(uint64_t) <= kFwdMaxShared,
+                "one ring entry exceeds shared memory");
+  const int warps = forward_warps(a.P, a.sms);
+  const int blocks = (a.P + warps * kWarpPairs - 1) / (warps * kWarpPairs);
+  const int ring = ring_depth(entry, blocks, a.sms);
+  const size_t smem = ring * entry + 2 * ring * sizeof(uint64_t);
+  auto* kernel = hmm_forward_kernel<NT, SEQ, APPROX>;
+  const int rc = allow_shared(kernel, smem);
+  if (rc != 0) return rc;
+  kernel<<<blocks, 32 * (warps + 1), smem, stream>>>(
+      a.Mf, a.Mlo, a.G, a.em, a.obs, a.isp, a.ops, a.mask,
+      static_cast<AlphaT<APPROX>*>(a.alpha), a.T, a.P, a.rops, a.hem,
+      a.op_bf16, ring);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT, bool SEQ, bool APPROX>
+int launch_forward(const ForwardArgs& a, cudaStream_t stream) {
+  if constexpr (APPROX && !SEQ)
+    return launch_forward_ffma<NT>(a, stream);
+  else
+    return launch_forward_mma<NT, SEQ, APPROX>(a, stream);
+}
+
 template <bool SEQ, bool APPROX>
-int forward_variant(const ForwardArgs& a, int rpw, cudaStream_t stream) {
-  return dispatch_rpw(rpw, [&](auto r) {
+int forward_variant(const ForwardArgs& a, int nt, cudaStream_t stream) {
+  return dispatch_rpw(nt, [&](auto r) {
     return launch_forward<decltype(r)::value, SEQ, APPROX>(a, stream);
   });
 }
@@ -174,30 +700,38 @@ int forward_variant(const ForwardArgs& a, int rpw, cudaStream_t stream) {
 }  // namespace fastsmc
 
 // Launch the forward kernel on `stream` (device `device`); returns the
-// cudaError_t of the launch. `profile` is kExact, kFast or kTurbo (Mf f32,
-// f32, bf16; alpha f32, bf16, bf16). Sequence mode when `rops` and `hem`
-// are given, array mode when both are null. KP must be a multiple of 8, at
-// most 128.
-extern "C" int fastsmc_hmm_forward(const void* Mf, int profile, int G,
-                                   const float* em, const float* obs,
-                                   const float* isp, const int* ops,
-                                   const int* rops, const float* hem,
-                                   const int* mask, void* alpha, int T, int P,
-                                   int KP, int device, void* stream) {
+// cudaError_t of the launch. `profile` is kExact, kFast or kTurbo: on
+// kExact `Mf` and `Mlo` are the operators' TF32 split (hi, lo; f32 values
+// with the low 13 mantissa bits zero, Mf = hi + lo); on kFast `Mf` is f32
+// and on kTurbo bf16, with `Mlo` null. Alpha is f32 on kExact, bf16
+// otherwise. Sequence mode when `rops` and `hem` are given, array mode
+// when both are null. KP must be a multiple of 8, at most 128.
+extern "C" int fastsmc_hmm_forward(const void* Mf, const float* Mlo,
+                                   int profile, int G, const float* em,
+                                   const float* obs, const float* isp,
+                                   const int* ops, const int* rops,
+                                   const float* hem, const int* mask,
+                                   void* alpha, int T, int P, int KP,
+                                   int device, void* stream) {
   using namespace fastsmc;
-  if (T <= 0 || P <= 0 || G <= 0 || KP % kWarps != 0 || profile < kExact ||
-      profile > kTurbo || (rops == nullptr) != (hem == nullptr))
+  if (T <= 0 || P <= 0 || G <= 0 || KP % 8 != 0 || profile < kExact ||
+      profile > kTurbo || (profile == kExact) != (Mlo != nullptr) ||
+      (rops == nullptr) != (hem == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const ForwardArgs a{static_cast<const float*>(Mf), G, em, obs, isp, ops,
-                      rops, hem, mask, alpha, T, P, profile == kTurbo};
-  const int rpw = KP / kWarps;
+  int sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const ForwardArgs a{static_cast<const float*>(Mf), Mlo, G, em, obs, isp,
+                      ops, rops, hem, mask, alpha, T, P,
+                      profile == kTurbo, sms};
+  const int nt = KP / 8;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool seq = rops != nullptr;
   if (profile == kExact)
-    return seq ? forward_variant<true, false>(a, rpw, s)
-               : forward_variant<false, false>(a, rpw, s);
-  return seq ? forward_variant<true, true>(a, rpw, s)
-             : forward_variant<false, true>(a, rpw, s);
+    return seq ? forward_variant<true, false>(a, nt, s)
+               : forward_variant<false, false>(a, nt, s);
+  return seq ? forward_variant<true, true>(a, nt, s)
+             : forward_variant<false, true>(a, nt, s);
 }

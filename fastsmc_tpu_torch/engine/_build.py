@@ -32,10 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    # Mf, profile, G, em, obs, isp, ops, rops, hem, mask, alpha, T, P, KP,
-    # device, stream
-    "fastsmc_hmm_forward": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _P],
+    # Mf (exact: hi), Mlo, profile, G, em, obs, isp, ops, rops, hem, mask,
+    # alpha, T, P, KP, device, stream
+    "fastsmc_hmm_forward": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
     # Mb, profile, G, em, obs, alpha, ops, rops, hem, mask, exp_times, post,
     # th, mean, map, psum, mm, T, P, K, KP, state_threshold, device, stream
     "fastsmc_hmm_backward": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,

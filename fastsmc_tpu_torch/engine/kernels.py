@@ -25,6 +25,13 @@ approximate profiles normalise the carry only at the last site of each
 posterior combine renormalises every site, so this is exact in exact
 arithmetic.
 
+The forward kernel computes the exact profile's products on tensor cores as
+3xTF32 (each operand split into two TF32 values, three products summed in
+f32; never a single TF32 pass) and the sequence-mode fast/turbo products as
+bf16 on tensor cores, each held to its plain version by the same tolerance
+as before; its array-mode fast/turbo branch keeps the FFMA design, the only
+one that stays within that branch's tolerance (csrc/hmm_forward.cu).
+
 A wrapper runs the plain version only for tensors on the CPU. For a CUDA
 tensor it launches its kernel or raises; ``LAUNCHES`` counts the launches
 of each kernel instantiation (:func:`kernel_name`).
@@ -289,21 +296,32 @@ def _raise_on(rc: int, kernel: str):
 
 
 def forward(Mf, em, obs, isp, ops, mask, seq: Optional[Seq] = None,
-            profile: str = "exact") -> torch.Tensor:
+            profile: str = "exact", split=None) -> torch.Tensor:
     """alpha ``[T, KP, P]`` (f32 exact, bf16 fast/turbo): the CUDA forward
     kernel for CUDA tensors, :func:`forward_reference` for CPU tensors.
-    ``Mf`` is bf16 on the turbo profile, f32 otherwise."""
+    ``Mf`` is bf16 on the turbo profile, f32 otherwise. The exact profile
+    needs ``split = (hi, lo)``, the operators' TF32 split that its kernel
+    reads (``DecodeTables.split``); the plain version reads ``Mf``."""
+    if profile == "exact" and split is None:
+        raise ValueError("the exact forward needs the operators' TF32 "
+                         "split (DecodeTables.split)")
     if obs.device.type == "cpu":
         return forward_reference(Mf, em, obs, isp, ops, mask, seq, profile)
     T, P, G, KP = _check_inputs(Mf, em, obs, ops, mask, seq, profile)
     _check("isp", isp, torch.float32, (KP,))
+    lo = None
+    if profile == "exact":
+        Mf, lo = split
+        _check("Mf_hi", Mf, torch.float32, (G, KP, KP))
+        _check("Mf_lo", lo, torch.float32, (G, KP, KP))
     alpha = torch.empty((T, KP, P), dtype=alpha_dtype(profile),
                         device=obs.device)
     name = kernel_name("hmm_forward", seq is not None, profile)
     rc = load_library().fastsmc_hmm_forward(
-        Mf.data_ptr(), _PROFILE_CODE[profile], G, em.data_ptr(),
-        obs.data_ptr(), isp.data_ptr(), ops.data_ptr(), *_seq_ptrs(seq),
-        mask.data_ptr(), alpha.data_ptr(), T, P, KP, obs.device.index or 0,
+        Mf.data_ptr(), None if lo is None else lo.data_ptr(),
+        _PROFILE_CODE[profile], G, em.data_ptr(), obs.data_ptr(),
+        isp.data_ptr(), ops.data_ptr(), *_seq_ptrs(seq), mask.data_ptr(),
+        alpha.data_ptr(), T, P, KP, obs.device.index or 0,
         torch.cuda.current_stream(obs.device).cuda_stream)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -467,7 +485,7 @@ class GpuDecoder:
         if self.sequence:
             seq_f, seq_b = self.seq_prologue(t0, T)
         alpha = forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
-                        self.profile)
+                        self.profile, t.split)
         return backward_combine(t.Mb, em, obs, alpha, ops_b, mask, self.K,
                                 state_threshold, outs, t.exp_times, seq_b,
                                 self.profile)

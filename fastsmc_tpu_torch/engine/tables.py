@@ -21,6 +21,21 @@ from .oracle import DecodeContext
 MAX_STATES = 128   # the kernels hold at most 16 state rows per warp
 
 
+def tf32_split(M: torch.Tensor):
+    """``(hi, lo)`` of f32 ``M``: ``hi`` is ``M`` rounded to TF32 (10
+    mantissa bits, to nearest, ties away from zero: ``cvt.rna.tf32.f32``),
+    ``lo`` is ``M - hi`` (exact in f32) rounded the same way; both f32 with
+    the low 13 mantissa bits zero, and ``hi + lo`` is ``M`` within 2^-22
+    relative. The forward kernel's exact profile reads its operators as
+    this pair (3xTF32)."""
+    def rna(x):
+        b = x.contiguous().view(torch.int32)
+        return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(M.float())
+    return hi, rna(M.float() - hi)
+
+
 def padded_states(K: int) -> int:
     """State rows the kernels compute: K rounded up to a multiple of 8."""
     if not 0 < K <= MAX_STATES:
@@ -47,6 +62,16 @@ class DecodeTables:
     seq_op_bwd: Optional[torch.Tensor] = None  # int64 [L-1]
     rate_op: Optional[torch.Tensor] = None     # int64 [L]
     homoz: Optional[torch.Tensor] = None       # f32 [L-1, KP]
+    # f32 operators only: Mf's TF32 split (tf32_split), the forward
+    # kernel's exact-profile operators
+    Mf_hi: Optional[torch.Tensor] = None       # f32 [G, KP, KP]
+    Mf_lo: Optional[torch.Tensor] = None       # f32 [G, KP, KP]
+
+    @property
+    def split(self):
+        """``(Mf_hi, Mf_lo)``, the forward kernel's exact-profile operators;
+        None for bf16 operators."""
+        return None if self.Mf_hi is None else (self.Mf_hi, self.Mf_lo)
 
     @property
     def KP(self) -> int:
@@ -159,15 +184,18 @@ class DecodeTables:
         def i64(x):
             return torch.tensor(np.asarray(x, np.int64), device=device)
 
-        seq = {}
+        extra = {}
         if seq_tabs is not None:
-            seq = dict(seq_op=i64(seq_tabs["seq_op"]),
-                       seq_op_bwd=i64(seq_tabs["seq_op_bwd"]),
-                       rate_op=i64(seq_tabs["rate_op"]),
-                       homoz=f32(seq_tabs["homoz"]))
-        return cls(K=K, Mf=f32(Mf).to(op_dtype), Mb=f32(Mb).to(op_dtype),
+            extra = dict(seq_op=i64(seq_tabs["seq_op"]),
+                         seq_op_bwd=i64(seq_tabs["seq_op_bwd"]),
+                         rate_op=i64(seq_tabs["rate_op"]),
+                         homoz=f32(seq_tabs["homoz"]))
+        Mf_t = f32(Mf).to(op_dtype)
+        if op_dtype == torch.float32:
+            extra["Mf_hi"], extra["Mf_lo"] = tf32_split(Mf_t)
+        return cls(K=K, Mf=Mf_t, Mb=f32(Mb).to(op_dtype),
                    gap_op=i64(gap_op), identity_op=identity_op, em=f32(em),
                    isp=f32(isp), exp_times=f32(expt),
                    hap_bits=torch.tensor(np.asarray(hap_bits, np.uint8),
                                          device=device),
-                   scaling_skip=int(scaling_skip), **seq)
+                   scaling_skip=int(scaling_skip), **extra)

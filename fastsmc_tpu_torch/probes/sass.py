@@ -1,16 +1,17 @@
 """What the decode kernels compile to: instruction counts from their SASS,
 and ptxas' registers, spills and shared memory.
 
-    python -m fastsmc_tpu_torch.probes.sass [--rpw 9] [--kernel hmm_backward]
+    python -m fastsmc_tpu_torch.probes.sass [--rpw 9] [--kernel hmm_forward]
 
 Builds the kernels' library (``engine/_build.py``; on a machine with the
 CUDA toolkit) unless it exists, dumps the SASS of every entry function
 whose name holds ``--kernel`` and the row count ``--rpw`` (KP = 8 x rpw;
 K=69 gives 9) with ``cuobjdump -sass``, and prints one JSON line: for each
 function, its instruction counts over the whole function and over its
-densest loop (the backward branch whose body has the largest share of
-FFMA: the operator product), and ptxas' line for it when the library was
-built by this call.
+densest loop (the backward branch whose body has the largest share of the
+product's opcode: HMMA in a function that has tensor-core products, FFMA
+otherwise), and ptxas' line for it when the library was built by this
+call.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import subprocess
 from collections import Counter
 
 # opcodes counted; LDS alone is a 32-bit shared load
-OPCODES = ("FFMA", "LDS", "LDS.64", "LDS.128", "LDG", "BAR", "SYNCS")
+OPCODES = ("FFMA", "HMMA", "LDS", "LDS.64", "LDS.128", "LDSM", "SHFL", "LDG",
+           "BAR", "SYNCS")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"(.*?);")
 _TARGET = re.compile(r"(?:0x([0-9a-f]+)|`\(([^)]+)\))")
@@ -37,7 +39,7 @@ def _counts(ops) -> dict:
         if base == "LDS":
             width = next((w for w in (".64", ".128") if w in op), "")
             c["LDS" + width] += 1
-        elif base in ("BAR", "SYNCS", "FFMA", "LDG"):
+        elif base in ("BAR", "SYNCS", "FFMA", "HMMA", "LDSM", "SHFL", "LDG"):
             c[base] += 1
     return {k: c.get(k, 0) for k in OPCODES} | {"instructions": len(ops)}
 
@@ -51,6 +53,7 @@ def parse_sass(text: str) -> dict:
             return
         addr = [a for a, _, _ in body]
         ops = [o for _, o, _ in body]
+        product = "HMMA" if any(o.startswith("HMMA") for o in ops) else "FFMA"
         best = None
         for i, (a, op, rest) in enumerate(body):
             if not op.startswith("BRA"):
@@ -63,7 +66,7 @@ def parse_sass(text: str) -> dict:
                 continue
             j = next(k for k, x in enumerate(addr) if x >= tgt)
             loop = ops[j:i + 1]
-            share = sum(o.startswith("FFMA") for o in loop) / len(loop)
+            share = sum(o.startswith(product) for o in loop) / len(loop)
             if best is None or share > best[0]:
                 best = (share, loop)
         funcs[name] = {"total": _counts(ops),
@@ -117,7 +120,7 @@ def sass_report(lib_path, log: str, kernel: str, rpw: int) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rpw", type=int, default=9)
-    ap.add_argument("--kernel", default="hmm_backward")
+    ap.add_argument("--kernel", default="hmm_forward")
     args = ap.parse_args(argv)
     from fastsmc_tpu_torch.engine import _build
     info = _build.build()

@@ -6,7 +6,8 @@ them from the repository root with
     python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
 
 Tolerance: atol 1e-5 (f32 sums in another order in the K=69 product,
-renormalised at every site); sums over P pairs atol 1e-5 * P; per-pair
+renormalised at every site; the forward's exact products run as 3xTF32 on
+tensor cores, which add with truncation and read 4-6e-6 at T=8192); sums over P pairs atol 1e-5 * P; per-pair
 means, and they only, also rtol 1e-5 (they are in generations); MAP
 states equal but for ties within 1e-5. On the fast/turbo profiles the
 kernel and its plain version are two bf16 trajectories that can part after
@@ -91,7 +92,7 @@ def test_forward_kernel_matches_plain(gpu, t0, T, P):
     t = gpu.tables
     obs, em, ops_f, _, mask = _inputs(gpu, t0, T, P)
     n = kernels.LAUNCHES["hmm_forward"]
-    got = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask)
+    got = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, split=t.split)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["hmm_forward"] == n + 1
     want = kernels.forward_reference(t.Mf, em, obs, t.isp, ops_f, mask)
@@ -175,7 +176,7 @@ def test_four_outputs_match_plain(gpu, P):
     state is the first maximum of the kernel's own posterior."""
     t = gpu.tables
     obs, em, ops_f, ops_b, mask = _inputs(gpu, 1000, 64, P, seed=2)
-    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask)
+    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, split=t.split)
     outs = kernels.BwdOutputs(posterior=True, posterior_sums=True,
                               per_pair_mean=True, per_pair_map=True,
                               major_minor_sums=True)
@@ -258,7 +259,7 @@ def test_variant_kernels_match_plain(cuda, ctx, seq_ctx, mode, profile, t0,
     bwd = kernels.kernel_name("hmm_backward", dec.sequence, profile)
     before = dict(kernels.LAUNCHES)
     alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
-                            profile)
+                            profile, t.split)
     outs = kernels.BwdOutputs(**{n: True for n in kernels.KERNEL_OUTPUTS})
     args = (t.Mb, em, obs, alpha, ops_b, mask, dec.K, 11, outs, t.exp_times,
             seq_b, profile)
@@ -311,7 +312,7 @@ def test_backward_batch_invariance(cuda, ctx, seq_ctx, mode, profile):
     if dec.sequence:
         seq_f, seq_b = dec.seq_prologue(1000, T)
     alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
-                            profile)
+                            profile, t.split)
     outs = kernels.BwdOutputs(posterior=True, threshold_sums=True,
                               per_pair_mean=True, per_pair_map=True)
 
@@ -326,6 +327,66 @@ def test_backward_batch_invariance(cuda, ctx, seq_ctx, mode, profile):
                                        "per_pair_mean", "per_pair_map"}
     for name in full:
         assert torch.equal(full[name][..., :n], alone[name]), name
+
+
+# (t0, T, P): dead lanes in the last 16- and 32-pair groups, inside the
+# panel and in a window padded past its end (L=6400)
+FORWARD_SHAPES = [(2048, 128, 8187), (6370, 64, 8187)]
+
+
+@pytest.mark.parametrize("mode,profile", [
+    ("array", "exact"), ("sequence", "exact"), ("array", "fast"),
+    ("array", "turbo"), ("sequence", "fast"), ("sequence", "turbo")])
+@pytest.mark.parametrize("t0,T,P", FORWARD_SHAPES)
+def test_forward_branches_match_plain(cuda, ctx, seq_ctx, mode, profile, t0,
+                                      T, P):
+    """Each forward branch against its plain version (exact: raw alpha
+    within ATOL; fast/turbo: columns normalised, within APPROX_ATOL[mode]);
+    a second launch gives the same bits; each launch counts once."""
+    dec = _variant(ctx, seq_ctx, mode, profile)
+    t = dec.tables
+    obs, em, ops_f, _, mask = _inputs(dec, t0, T, P, seed=10)
+    seq_f = dec.seq_prologue(t0, T)[0] if dec.sequence else None
+    name = kernels.kernel_name("hmm_forward", dec.sequence, profile)
+    n = kernels.LAUNCHES[name]
+    got = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f, profile,
+                          t.split)
+    again = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                            profile, t.split)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n + 2
+    assert torch.equal(got, again)
+    assert got.dtype == kernels.alpha_dtype(profile)
+    assert bool(torch.isfinite(got).all())
+    want = kernels.forward_reference(t.Mf, em, obs, t.isp, ops_f, mask,
+                                     seq_f, profile)
+    if profile == "exact":
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    else:
+        a, w = got.float(), want.float()
+        torch.testing.assert_close(a / a.sum(1, keepdim=True),
+                                   w / w.sum(1, keepdim=True), rtol=0,
+                                   atol=APPROX_ATOL[mode])
+
+
+@pytest.mark.parametrize("mode,profile", [
+    ("array", "exact"), ("sequence", "exact"), ("array", "fast"),
+    ("sequence", "fast")])
+def test_forward_batch_invariance(cuda, ctx, seq_ctx, mode, profile):
+    """The same 3,137 pairs as the first 3,137 of an 8,192-pair forward
+    launch and alone: their alpha is equal bit for bit (no sum crosses a
+    pair, and the block shape the launch picks changes no pair's sums)."""
+    dec = _variant(ctx, seq_ctx, mode, profile)
+    t = dec.tables
+    T, P, n = 64, 8192, 3137
+    obs, em, ops_f, _, mask = _inputs(dec, 1000, T, P, seed=11)
+    seq_f = dec.seq_prologue(1000, T)[0] if dec.sequence else None
+
+    def fwd(obs):
+        return kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                               profile, t.split)
+
+    assert torch.equal(fwd(obs)[..., :n], fwd(obs[..., :n].contiguous()))
 
 
 @pytest.mark.parametrize("mode", ["array", "sequence"])

@@ -133,7 +133,7 @@ def test_wrappers_take_plain_versions_on_cpu(gpu):
     ha, hb = _pairs(2)
     obs, em, ops_f, ops_b, mask = gpu.prologue(ha, hb, 100, 64)
     before = dict(kernels.LAUNCHES)
-    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask)
+    alpha = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, split=t.split)
     assert torch.equal(alpha, kernels.forward_reference(
         t.Mf, em, obs, t.isp, ops_f, mask))
     outs = kernels.BwdOutputs(posterior=True, threshold_sums=True)
@@ -149,6 +149,17 @@ def test_wrappers_take_plain_versions_on_cpu(gpu):
     assert torch.all(alpha[:, gpu.K:] == 0)
     np.testing.assert_allclose(got["posterior"].sum(1).numpy(), 1.0,
                                atol=1e-5)
+
+
+def test_exact_forward_needs_the_split(gpu):
+    """The exact profile's wrapper takes the operators' TF32 split from the
+    caller (DecodeTables.split), on every device: it never makes one."""
+    t = gpu.tables
+    assert t.split is not None and t.split[0] is t.Mf_hi
+    ha, hb = _pairs(2)
+    obs, em, ops_f, _, mask = gpu.prologue(ha, hb, 100, 16)
+    with pytest.raises(ValueError, match="TF32 split"):
+        kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask)
 
 
 def test_block_reduce_takes_plain_version_on_cpu():
