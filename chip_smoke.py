@@ -20,12 +20,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   4. FastSMC golden leg: FastSMC(...).run() on artifacts/panels/
      example_array must reproduce the record keys (first 9 columns) of
      tests/fixtures/example_array.golden.FastSMC.ibd.gz in order, with
-     float columns within relative 1e-4;
+     float columns within relative 1e-4; then the overflow redo: the same
+     run with every extraction cap started at 8 must redo batches at grown
+     caps and write the same bytes (decompressed);
   5. FastSMC scale leg: the 16,384-haplotype x 6,400-site folded
      founder-mosaic panel (fastsmc_tpu_torch.probes.biobank make_panel,
      a copy of scripts/biobank_probe.py's), batch
      8192, min_m 1.5, ages on, exact profile, run twice with identical
-     output;
+     output, each row with roofline(); in the first run every flush group
+     after the first is queued under torch.cuda.set_sync_debug_mode
+     ("error"), so a call that waits for the card fails the run (the
+     drain's wait on the group's event is outside);
   6. ASMC golden leg: the sums of pairs 2,691..3,138 (jobs=100, job 7) of
      the example panel must reproduce the JAX-made
      tests/fixtures/example_array.asmc_job7of100.npz within 1e-5 per pair;
@@ -69,6 +74,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      alpha gate, a wrongly normalising backward the carry gate), then the
      probe's main(): the six median times and the alpha write and read
      costs.
+ 14. (after phase 5) the exact FastSMC scale leg once more, warm, under
+     torch.profiler: wall, device busy time and idle share, device time by kernel group,
+     roofline() and peak memory;
+ 15. (after 14) resume: the exact scale leg stopped by an exception at the drain after
+     its first checkpoint, then resumed by a fresh FastSMC; the output's
+     sha256 (decompressed) must equal phase 5's and no .progress may be
+     left;
+ 16. (after 12) the entry options on the example panel: sort_batches=8,
+     bucket_sites=0 and permissive_window=True, each against the JAX
+     package's records (tests/fixtures/example_array.{sort8,arrival,
+     permissive}.FastSMC.ibd.gz) as in phase 4.
 Each leg clears the launch counts before it runs and fails unless every
 kernel of its path was launched. The line before the last lists the
 kernels as JSON, each with its time, its plain version's, its bound on the
@@ -81,6 +97,16 @@ build/chip_smoke/ in the checkout.
 
 Phase 10 also times the fast array kernels at the fast ASMC leg's batch
 (FAST_CAP_PAIRS pairs, T=8192), kernel only.
+
+    python3 chip_smoke.py --fastsmc-parent DIR
+
+first runs the exact FastSMC scale leg of this tree and of the checkout at
+DIR (e.g. a `git archive` of the parent commit), each through its own
+package: one run a side, then profiled runs in turns (parent, this, this,
+parent) with wall, device idle share, roofline() (where the side has one)
+and peak memory; this tree's records must have the parent's keys in the
+parent's order (floats within GOLDEN_RTOL), each side's runs the same
+bytes. Then the phases above.
 
     python3 chip_smoke.py --ab-parent DIR [--ab-only]
 
@@ -948,6 +974,21 @@ def ab_forward_cases():
     return cases + [("array", "fast", 0, 8192, FAST_CAP_PAIRS)]
 
 
+def load_parent(parent: str) -> None:
+    """Register the package of the checkout at ``parent`` as
+    ``parent_port``, so that its modules (which import each other
+    relatively) import under that name."""
+    import types
+    if "parent_port" in sys.modules:
+        return
+    # a parent from before the port owned its host modules imports
+    # fastsmc_tpu, whose __init__ imports JAX unless this is set
+    os.environ.setdefault("FASTSMC_TPU_NO_CACHE", "1")
+    pkg = types.ModuleType("parent_port")
+    pkg.__path__ = [os.path.join(parent, "fastsmc_tpu_torch")]
+    sys.modules[pkg.__name__] = pkg
+
+
 def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
     """This tree's forward kernel against the parent checkout's at
     ``parent``, each called through its own checkout's wrappers
@@ -965,14 +1006,8 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
     lines and SASS counts (fastsmc_tpu_torch.probes.sass) for both decode
     kernels at this model's K."""
     import importlib
-    import types
     from fastsmc_tpu_torch.probes import sass
-    # a parent from before the port owned its host modules imports
-    # fastsmc_tpu, whose __init__ imports JAX unless this is set
-    os.environ.setdefault("FASTSMC_TPU_NO_CACHE", "1")
-    pkg = types.ModuleType("parent_port")
-    pkg.__path__ = [os.path.join(parent, "fastsmc_tpu_torch")]
-    sys.modules[pkg.__name__] = pkg
+    load_parent(parent)
     pinfo = importlib.import_module("parent_port.engine._build").build()
     pk = importlib.import_module("parent_port.engine.kernels")
     log(f"[a/b] parent library built in {pinfo.seconds:.1f} s")
@@ -1193,18 +1228,70 @@ def compare_records(got, want, leg: str) -> float:
     return rel
 
 
+def decompressed_sha256(path: str) -> str:
+    with gzip.open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
 def golden_leg(FastSMC, DecodingParams, kernels) -> dict:
-    params = DecodingParams.fastsmc_defaults(
-        EXAMPLE, DQ, os.path.join(OUT, "example"), use_known_seed=True)
-    t0 = time.perf_counter()
-    path, launches = run_leg(
-        kernels, "FastSMC golden", DECODE_KERNELS,
-        lambda: FastSMC(params, device=DEVICE).run(verbose=False))
-    wall = time.perf_counter() - t0
+    """The example panel against the golden; then again with every
+    extraction cap started at 8 (its batches hold at most 32 candidates,
+    so the usual caps never overflow there): the batches are redone at
+    grown caps, and the output must equal the first run's byte for byte
+    (decompressed)."""
+    def run(tag, caps=None):
+        f = FastSMC(DecodingParams.fastsmc_defaults(
+            EXAMPLE, DQ, os.path.join(OUT, tag), use_known_seed=True),
+            device=DEVICE)
+        if caps:
+            f._seg_cap = f._kept_cap = f._pps_cap = caps
+        t0 = time.perf_counter()
+        path, launches = run_leg(kernels, f"FastSMC golden ({tag})",
+                                 DECODE_KERNELS, lambda: f.run(verbose=False))
+        return f, path, launches, time.perf_counter() - t0
+
+    f, path, launches, wall = run("example")
     got = read_records(path)
     rel = compare_records(got, read_records(GOLDEN), "golden leg")
     log(f"[golden] {len(got)} records, keys equal in order, float max rel "
         f"{rel:.3g}, wall {wall:.2f} s, launches {launches}")
+    g, tiny, n, wall = run("example_tiny_caps", caps=8)
+    same = decompressed_sha256(tiny) == decompressed_sha256(path)
+    log(f"[golden] caps started at 8: {g.stats['overflow_redos']} overflow "
+        f"redos (default caps: {f.stats['overflow_redos']}), caps grown to "
+        f"raw {g._seg_cap} / kept {g._kept_cap} / ages {g._pps_cap}, output "
+        f"equal byte for byte: {same}, wall {wall:.2f} s, launches {n}")
+    if not same or g.stats["overflow_redos"] < 1:
+        raise AssertionError("overflow redo leg: the tiny-cap run's output "
+                             "differs or nothing overflowed")
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def options_leg(FastSMC, DecodingParams, kernels) -> dict:
+    """The example panel with sort_batches=8, bucket_sites=0 and
+    permissive_window=True, each against the JAX package's records
+    (tests/fixtures/example_array.<tag>.FastSMC.ibd.gz)."""
+    launches = {}
+    for tag, kw, pkw in (("sort8", dict(sort_batches=8), {}),
+                         ("arrival", dict(bucket_sites=0), {}),
+                         ("permissive", {}, dict(permissive_window=True))):
+        params = DecodingParams.fastsmc_defaults(
+            EXAMPLE, DQ, os.path.join(OUT, f"example_{tag}"),
+            use_known_seed=True, **pkw)
+        path, n = run_leg(kernels, f"FastSMC {tag}", DECODE_KERNELS,
+                          lambda: FastSMC(params, device=DEVICE, **kw)
+                          .run(verbose=False))
+        got = read_records(path)
+        rel = compare_records(got, read_records(os.path.join(
+            REPO, "tests", "fixtures", f"example_array.{tag}.FastSMC.ibd.gz")),
+            f"{tag} leg")
+        log(f"[options] {tag} ({kw or pkw}): {len(got)} records, keys equal "
+            f"in order to the JAX package's, float max rel {rel:.3g}, "
+            f"launches {n}")
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
     return launches
 
 
@@ -1218,9 +1305,34 @@ def scale_params(DecodingParams, tag: str):
         do_per_pair_posterior_mean=True, do_per_pair_map=True).finalize()
 
 
+def check_no_sync(f) -> dict:
+    """Queue every flush group of ``f`` after its first under
+    torch.cuda.set_sync_debug_mode("error"), so that a call that waits for
+    the card raises; the drains (the wait on each group's event) stay
+    outside. Returns the count of groups checked, filled in as it runs."""
+    checked = {"groups": 0, "calls": 0}
+    queue = f._queue_group
+
+    def queue_checked(entries):
+        checked["calls"] += 1
+        if checked["calls"] == 1:
+            return queue(entries)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = queue(entries)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked["groups"] += 1
+        return res
+
+    f._queue_group = queue_checked
+    return checked
+
+
 def scale_leg(FastSMC, DecodingParams, kernels, data, profile="exact"):
-    """Twice on ``profile``; returns (launches, the second run's records
-    file, its row)."""
+    """Twice on ``profile``; on the exact profile the first run's flush
+    groups after its first are queued under check_no_sync. Returns
+    (launches, the second run's records file, its row)."""
     runs = []
     dq = None
     tag = "scale" if profile == "exact" else f"scale_{profile}"
@@ -1228,23 +1340,29 @@ def scale_leg(FastSMC, DecodingParams, kernels, data, profile="exact"):
         f = FastSMC(scale_params(DecodingParams, f"{tag}{i}"), data=data,
                     dq=dq, device=DEVICE, decode_profile=profile)
         dq = f.dq
+        checked = check_no_sync(f) if profile == "exact" and i == 0 \
+            else None
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         path, launches = run_leg(kernels, f"FastSMC scale ({profile})",
                                  decode_kernels(kernels, "array", profile),
                                  lambda: f.run(verbose=False))
         wall = time.perf_counter() - t0
-        with gzip.open(path, "rb") as fh:
-            digest = hashlib.sha256(fh.read()).hexdigest()
         row = dict(profile=profile, run="cold" if i == 0 else "warm",
                    wall_s=wall, candidates=f._cpt, records=f.n_segments,
                    candidates_per_s=f._cpt / wall,
                    decoded_site_pairs=f.stats["decoded_site_pairs"],
                    cand_site_pairs=f.stats["cand_site_pairs"],
                    flushes=f.stats["flushes"],
+                   overflow_redos=f.stats["overflow_redos"],
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    launches=launches, phase_s=f.timer.totals(),
-                   sha256=digest)
+                   roofline=f.roofline(), sha256=decompressed_sha256(path))
+        if checked is not None:
+            row["groups_queued_without_sync"] = checked["groups"]
+            if checked["groups"] < 1:
+                raise AssertionError("scale leg: no flush group was queued "
+                                     "under the sync check")
         log("[scale] " + json.dumps(row))
         runs.append(row)
         if i == 0:
@@ -1255,6 +1373,109 @@ def scale_leg(FastSMC, DecodingParams, kernels, data, profile="exact"):
                              "outputs differ")
     log(f"[scale] {profile}: both runs wrote identical decompressed output")
     return runs[1]["launches"], path, runs[1]
+
+
+def resume_leg(FastSMC, DecodingParams, kernels, data, want: str) -> dict:
+    """The exact scale leg stopped by an exception in the drain after its
+    first checkpoint (about 18 drains at flush group 8: the records of
+    that drain follow the checkpoint, and a group is in flight), then
+    resumed by a fresh FastSMC: its decompressed output must have sha256
+    ``want`` (the uninterrupted leg's), and no .progress may be left."""
+    class Interrupted(Exception):
+        pass
+
+    params = scale_params(DecodingParams, "scale_resume")
+    out = params.ibd_output_path()
+    progress = out + ".progress"
+    for stale in (out, progress):
+        if os.path.exists(stale):
+            os.remove(stale)
+    f = FastSMC(params, data=data, device=DEVICE)
+    drain = f._drain_group
+
+    def drain_then_stop():
+        after_checkpoint = os.path.exists(progress)
+        drain()
+        if after_checkpoint:
+            raise Interrupted()
+
+    f._drain_group = drain_then_stop
+    try:
+        f.run(verbose=False)
+        raise AssertionError("resume leg: the run ended before a drain "
+                             "followed its first checkpoint")
+    except Interrupted:
+        pass
+    f._writer.close()
+    torch.cuda.synchronize()
+    with open(progress) as fh:
+        done, nseg, offset = map(int, fh.read().split())
+    written = os.path.getsize(out)
+    g = FastSMC(params, data=data, dq=f.dq, device=DEVICE)
+    t0 = time.perf_counter()
+    path, launches = run_leg(kernels, "FastSMC resume", DECODE_KERNELS,
+                             lambda: g.run(verbose=False, resume=True))
+    wall = time.perf_counter() - t0
+    digest = decompressed_sha256(path)
+    log(f"[resume] stopped after batch {f._batch_idx} with the checkpoint "
+        f"at batch {done} ({nseg} records, byte {offset} of {written}); "
+        f"resumed: {g._resume_skip} batches skipped, {g.n_segments} "
+        f"records in {wall:.2f} s, output equal to the uninterrupted "
+        f"run's: {digest == want}, .progress left: "
+        f"{os.path.exists(progress)}, launches {launches}")
+    if digest != want or os.path.exists(progress) or written <= offset \
+            or g._resume_skip != done:
+        raise AssertionError("resume leg failed")
+    return launches
+
+
+def fastsmc_ab(parent: str, FastSMC, DecodingParams, data) -> None:
+    """The exact FastSMC scale leg of this tree against the parent
+    checkout's (``--fastsmc-parent``), each through its own package on one
+    card: one unprofiled run a side, then profiled runs in turns (parent,
+    this, this, parent; :func:`device_profile`) with roofline() where the
+    side has one and peak memory. This tree's records must have the
+    parent's keys in the parent's order with floats within GOLDEN_RTOL,
+    and each side's runs must write the same bytes."""
+    import importlib
+    load_parent(parent)
+    sides = {"parent": (
+        importlib.import_module("parent_port.pipelines.fastsmc").FastSMC,
+        importlib.import_module("parent_port.config").DecodingParams),
+        "this": (FastSMC, DecodingParams)}
+    digests = {"parent": set(), "this": set()}
+    paths = {}
+    for i, (side, profiled) in enumerate(
+            (("parent", False), ("this", False), ("parent", True),
+             ("this", True), ("this", True), ("parent", True))):
+        cls, params = sides[side]
+        f = cls(scale_params(params, f"ab_{side}_{i}"), data=data,
+                device=DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        if profiled:
+            row = device_profile(lambda: f.run(verbose=False),
+                                 KERNEL_GROUPS)
+        else:
+            t0 = time.perf_counter()
+            f.run(verbose=False)
+            torch.cuda.synchronize()
+            row = dict(wall_s=time.perf_counter() - t0)
+        path = f.params.ibd_output_path()
+        digests[side].add(decompressed_sha256(path))
+        paths[side] = path
+        row.update(side=side, profiled=profiled, records=f.n_segments,
+                   flushes=f.stats["flushes"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   roofline=f.roofline() if hasattr(f, "roofline") else None,
+                   phase_s=f.timer.totals())
+        log("[fastsmc a/b] " + json.dumps(row))
+    rel = compare_records(read_records(paths["this"]),
+                          read_records(paths["parent"]), "fastsmc a/b")
+    log(f"[fastsmc a/b] this tree's records have the parent's keys in the "
+        f"parent's order, float max rel {rel:.3g}; runs identical within "
+        f"each side: {json.dumps({k: len(v) == 1 for k, v in digests.items()})}")
+    if any(len(v) != 1 for v in digests.values()):
+        raise AssertionError("fastsmc a/b: a side's runs differ")
 
 
 def seq_golden_leg(FastSMC, DecodingParams, kernels) -> dict:
@@ -1505,51 +1726,80 @@ def asmc_scale_leg(ASMC, DecodingParams, kernels, data, mode="array",
     return runs[1]["launches"], sums[1], runs[1]
 
 
-def profile_asmc_leg(ASMC, DecodingParams, data) -> dict:
-    """The ASMC scale leg (array, exact, batch 8192) once more, warm, under
-    torch.profiler: the wall, the device's busy time (the union of its
-    kernels' and copies' intervals) and idle share, and device time by
-    kernel group. Logs {} when the profiler saw no device events."""
+def device_profile(run, groups) -> dict:
+    """``run()`` under torch.profiler, ended by a synchronise: the wall, the
+    device's busy time (the union of its kernels' and copies' intervals)
+    and idle share, and device seconds by kernel group (``groups``: pairs
+    of a name substring and a group; the rest is "other torch kernels");
+    only the wall when the profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_group = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        spans.append((lo, hi))
+        group = next((g for k, g in groups if k in e.name),
+                     "other torch kernels")
+        by_group[group] = by_group.get(group, 0.0) + (hi - lo) / 1e6
+    busy, end = 0.0, -1.0
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    res = dict(wall_s=wall)
+    if spans:
+        res.update(device_busy_s=busy / 1e6,
+                   device_idle_share=1 - busy / 1e6 / wall,
+                   device_s_by_group=by_group)
+    return res
+
+
+KERNEL_GROUPS = (("hmm_backward", "backward"), ("hmm_forward", "forward"),
+                 ("block_reduce", "reduction"), ("emcpy", "copies"),
+                 ("emset", "copies"))
+
+
+def profile_asmc_leg(ASMC, DecodingParams, data) -> dict:
+    """The ASMC scale leg (array, exact, batch 8192) once more, warm, under
+    torch.profiler (:func:`device_profile`); the other torch kernels are
+    the prologue."""
     params = DecodingParams.asmc(
         OUT, DQ, os.path.join(OUT, "asmc_profiled"), use_known_seed=True,
         do_posterior_sums=True, do_major_minor_posterior_sums=True,
         jobs=1000, job_ind=1)
     a = ASMC(params, data=data, device=DEVICE, batch_size=8192)
     a.decode_all_in_job(verbose=False)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        a.decode_all_in_job(verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans, groups = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        lo, hi = e.time_range.start, e.time_range.end
-        spans.append((lo, hi))
-        name = e.name
-        group = next((g for k, g in (("hmm_backward", "backward"),
-                                     ("hmm_forward", "forward"),
-                                     ("block_reduce", "reduction"),
-                                     ("emcpy", "copies"), ("emset", "copies"))
-                      if k in name), "other torch kernels (prologue)")
-        groups[group] = groups.get(group, 0.0) + (hi - lo) / 1e6
-    busy, end = 0.0, -1.0
-    for lo, hi in sorted(spans):
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
-    res = {} if not spans else dict(
-        wall_s=wall, device_busy_s=busy / 1e6,
-        device_idle_share=1 - busy / 1e6 / wall,
-        device_s_by_group=groups)
+    res = device_profile(lambda: a.decode_all_in_job(verbose=False),
+                         KERNEL_GROUPS)
     log("[asmc-scale] profiled warm run (array, exact): " + json.dumps(res))
     del a
     return res
+
+
+def profile_fastsmc_leg(FastSMC, DecodingParams, kernels, data) -> dict:
+    """The exact FastSMC scale leg once more, warm, under torch.profiler
+    (:func:`device_profile`; the other torch kernels are the prologue and
+    run extraction), with its roofline() and peak memory."""
+    f = FastSMC(scale_params(DecodingParams, "scale_profiled"), data=data,
+                device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = run_leg(
+        kernels, "FastSMC scale (profiled)", DECODE_KERNELS,
+        lambda: device_profile(lambda: f.run(verbose=False), KERNEL_GROUPS))
+    res.update(roofline=f.roofline(), overflow_redos=f.stats[
+        "overflow_redos"], max_memory_allocated=torch.cuda
+        .max_memory_allocated(), launches=launches)
+    log("[scale] profiled warm run (exact): " + json.dumps(res))
+    return launches
 
 
 def build_log(info, KP: int, K: int) -> None:
@@ -1607,6 +1857,9 @@ def main() -> int:
     ap.add_argument("--ab-only", action="store_true",
                     help="with --ab-parent: stop after the build, the A/B "
                     "and the batch-invariance check")
+    ap.add_argument("--fastsmc-parent", metavar="DIR",
+                    help="first A/B the exact FastSMC scale leg against the "
+                    "checkout at DIR (wall, device idle share, roofline)")
     args = ap.parse_args()
     if args.ab_only and not args.ab_parent:
         ap.error("--ab-only needs --ab-parent")
@@ -1634,6 +1887,19 @@ def main() -> int:
                              f"({native.library_path()})")
     log(f"[build] native host library {native.library_path().name} loaded "
         f"in {time.perf_counter() - t0:.1f} s")
+
+    def scale_panel():
+        t0 = time.perf_counter()
+        data = make_panel(SCALE_HAPS, seed=0)
+        log(f"[scale] panel {data.n_haps} haps x {data.sites} sites in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return data
+
+    scale_data = None
+    if args.fastsmc_parent:
+        scale_data = scale_panel()
+        fastsmc_ab(args.fastsmc_parent, FastSMC, DecodingParams, scale_data)
+        torch.cuda.empty_cache()
 
     # 3. kernels vs plain versions, on the tables of a 4,096-hap panel
     decs = variant_decoders(DecodingParams, kernels,
@@ -1673,16 +1939,19 @@ def main() -> int:
     add(n, "alpha_wall_probe")
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    scale_data = make_panel(SCALE_HAPS, seed=0)
-    log(f"[scale] panel {scale_data.n_haps} haps x {scale_data.sites} sites "
-        f"in {time.perf_counter() - t0:.1f} s")
+    if scale_data is None:
+        scale_data = scale_panel()
     example = load_data(DecodingParams.asmc(EXAMPLE, DQ, OUT, fastsmc=True,
                                             use_known_seed=True))
     add(golden_leg(FastSMC, DecodingParams, kernels))
-    n, exact_records, _ = scale_leg(FastSMC, DecodingParams, kernels,
-                                    scale_data)
+    n, exact_records, row = scale_leg(FastSMC, DecodingParams, kernels,
+                                      scale_data)
     add(n, "fastsmc_scale")
+    # 14.-15. the exact scale leg profiled, then stopped and resumed
+    add(profile_fastsmc_leg(FastSMC, DecodingParams, kernels, scale_data))
+    add(resume_leg(FastSMC, DecodingParams, kernels, scale_data,
+                   row["sha256"]))
+    torch.cuda.empty_cache()
     add(asmc_golden_leg(ASMC, DecodingParams, kernels, example))
     n, exact_streams = asmc_per_pair_leg(ASMC, DecodingParams, kernels,
                                          example)
@@ -1724,6 +1993,8 @@ def main() -> int:
         raise AssertionError(f"FastSMC fast scale leg: bp-F1 {f1}")
     add(asmc_profiles_leg(ASMC, DecodingParams, kernels, example))
     add(fastsmc_profiles_leg(FastSMC, DecodingParams, kernels))
+    # 16. the entry options against the JAX package's records
+    add(options_leg(FastSMC, DecodingParams, kernels))
 
     # the port imports nothing of JAX or of the JAX package; an A/B parent
     # from before the port owned its host modules imports fastsmc_tpu, so

@@ -424,7 +424,9 @@ class GpuDecoder:
         obs [T, 2, P] (oz=1, oh=0 past the panel), em [T, 3, KP] (identity
         rows past ``real``), ops_f/ops_b [T] (identity outside the window's
         real gaps; the seq-gap operators in sequence mode) and the scaling
-        mask [T], all on the tables' device."""
+        mask [T], all on the tables' device. ``hap_a``/``hap_b`` are int
+        tensors on that device (:func:`stage`; then nothing here waits for
+        the device) or host arrays."""
         t = self.tables
         L, dev = self.L, t.device
         real = min(T, L - t0)
@@ -432,8 +434,8 @@ class GpuDecoder:
         site = t0 + steps
         valid = steps < real
         site_c = site.clamp(max=L - 1)
-        ha = torch.as_tensor(np.asarray(hap_a), dtype=torch.int64, device=dev)
-        hb = torch.as_tensor(np.asarray(hap_b), dtype=torch.int64, device=dev)
+        ha = torch.as_tensor(hap_a, device=dev).long()
+        hb = torch.as_tensor(hap_b, device=dev).long()
         a = t.hap_bits[ha[:, None], site_c[None, :]]           # [P, T]
         b = t.hap_bits[hb[:, None], site_c[None, :]]
         xor = torch.where(valid, (a ^ b).float(), 0.0)
@@ -443,13 +445,12 @@ class GpuDecoder:
         ident_em[0] = 1.0
         em = torch.where(valid[:, None, None], t.em[site_c],
                          ident_em).contiguous()
-        ident = torch.tensor(t.identity_op, device=dev)
         gap_f = (site - 1).clamp(0, L - 2)
         gap_b = site.clamp(0, L - 2)
         op_f, op_b = (t.seq_op, t.seq_op_bwd) if self.sequence \
             else (t.gap_op, t.gap_op)
-        ops_f = torch.where((steps >= 1) & valid, op_f[gap_f], ident)
-        ops_b = torch.where(steps < real - 1, op_b[gap_b], ident)
+        ops_f = torch.where((steps >= 1) & valid, op_f[gap_f], t.identity_op)
+        ops_b = torch.where(steps < real - 1, op_b[gap_b], t.identity_op)
         mask = (site % t.scaling_skip) == 0
         return (obs, em, ops_f.to(torch.int32), ops_b.to(torch.int32),
                 mask.to(torch.int32))
@@ -465,16 +466,15 @@ class GpuDecoder:
         real = min(T, L - t0)
         steps = torch.arange(T, device=dev)
         site = t0 + steps
-        ident = torch.tensor(t.identity_op, device=dev)
         rate = t.rate_op[site.clamp(max=L - 1)]
         fwd = (steps >= 1) & (steps < real)
         bwd = steps < real - 1
         hem_f = torch.where(fwd[:, None], t.homoz[(site - 1).clamp(0, L - 2)],
                             1.0)
         hem_b = torch.where(bwd[:, None], t.homoz[site.clamp(0, L - 2)], 1.0)
-        return (Seq(torch.where(fwd, rate, ident).to(torch.int32),
+        return (Seq(torch.where(fwd, rate, t.identity_op).to(torch.int32),
                     hem_f.contiguous()),
-                Seq(torch.where(bwd, rate, ident).to(torch.int32),
+                Seq(torch.where(bwd, rate, t.identity_op).to(torch.int32),
                     hem_b.contiguous()))
 
     def _decode_body(self, hap_a, hap_b, t0: int, T: int, outs: BwdOutputs,
@@ -508,28 +508,44 @@ class GpuDecoder:
                 r[name] = r[name][..., :self.K]
         return r
 
-    def decode_extract(self, hap_a, hap_b, t0: int, t_len: int,
-                       state_threshold: int, s0: int, s1: int,
-                       prob_threshold: float, age_threshold: int,
-                       initial_state_prob, need_ages: bool = True,
-                       w0=None, w1=None):
+    def decode_extract_packed(self, hap_a, hap_b, t0: int, t_len: int,
+                              state_threshold: int, s0: int, s1: int,
+                              prob_threshold: float, cap: int, pps_cap: int,
+                              age_threshold: int, need_ages: bool = True,
+                              w0=None, w1=None, kcap: int = 0):
         """Decode + kept-run extraction (+ per-run ages), the counterpart of
-        ``PallasDecoder._decode_extract_jit`` (kernels.py:731-763) without
-        its static caps: returns exactly the kept runs as device tensors
-        ``(pair, a, b, score_sum, ages)``, pair-major; ``ages`` is [2,
-        n_kept] (posterior mean, MAP) or None."""
+        ``PallasDecoder.decode_extract_packed`` (kernels.py:731-809): the
+        kernels, the window mask and :func:`segments.extract_packed` at the
+        given caps, queued on the current stream. Returns device tensors
+        ``(packed [3*kcap+2] int32, ages [2, min(pps_cap, kcap)] f32
+        (posterior mean, MAP) or None, threshold_sums [T, P])``. With the
+        pair and window arrays as tensors on the device (:func:`stage`)
+        nothing here waits for the device; the [T, K, P] posterior is a
+        temporary of this call."""
         outs = BwdOutputs(posterior=need_ages, threshold_sums=True)
         r = self._decode_body(hap_a, hap_b, int(t0), int(t_len), outs,
                               int(state_threshold))
         th = r["threshold_sums"]
-        if w0 is not None:
-            th = seg.mask_window(th, w0, w1)
-        pair, a, b, score = seg.extract_kept_runs(th, s0, s1, prob_threshold)
-        ages = None
-        if need_ages:
-            t = self.tables
-            pps = seg.run_pps(r["posterior"][:, :self.K], pair, a, b)
-            isp = torch.as_tensor(np.asarray(initial_state_prob, np.float32),
-                                  device=t.device)
-            ages = seg.run_ages(pps, t.exp_times[:self.K], isp, age_threshold)
-        return pair, a, b, score, ages
+        thm = th if w0 is None else seg.mask_window(th, w0, w1)
+        post = r["posterior"][:, :age_threshold] if need_ages else None
+        packed, pps = seg.extract_packed(thm, s0, s1, prob_threshold, cap,
+                                         post, pps_cap, kcap)
+        if not need_ages:
+            return packed, None, th
+        t = self.tables
+        ages = seg.run_ages(pps, t.exp_times[:self.K], t.isp[:self.K],
+                            age_threshold)
+        return packed, ages, th
+
+
+def stage(x, device: torch.device, dtype=np.int32):
+    """``(tensor, source)``: host array ``x`` as a tensor on ``device``.
+    For a CUDA device it is copied from a pinned tensor with
+    ``non_blocking=True``, so the host does not wait; ``source`` is that
+    pinned tensor, which must stay alive until an event recorded after the
+    copy has fired. For the CPU, ``source`` is None."""
+    h = torch.from_numpy(np.ascontiguousarray(x, dtype=dtype))
+    if device.type != "cuda":
+        return h, None
+    pinned = h.pin_memory()
+    return pinned.to(device, non_blocking=True), pinned

@@ -436,3 +436,82 @@ def test_alpha_wall_kernels_match_plain(cuda, name):
                                                carry_site=1)
         assert alpha_wall.max_errors(carry, want_carry)[1] \
             <= ALPHA_WALL_CARRY_RTOL
+
+
+def _packed_call(dec, inputs):
+    """decode_extract_packed on a 512-site window of 128 pairs, each with
+    its own scan window, ages on, caps that hold every run; ``inputs`` are
+    the pair and window arrays, as host arrays or staged tensors."""
+    from fastsmc_tpu_torch.engine import segments as seg
+    ha, hb, w0, w1 = inputs
+    dq = DecodingQuantities.load_npz(DQ)
+    st = seg.state_threshold(dq.discretization, params_for(1024).time,
+                             dq.states)
+    prob = seg.probability_threshold(dq.initial_state_prob, st)
+    return dec.decode_extract_packed(ha, hb, 1024, 512, st, 0, 512, prob,
+                                     4096, 4096, dq.states, need_ages=True,
+                                     w0=w0, w1=w1)
+
+
+def _packed_inputs(seed=4, P=128):
+    rng = np.random.default_rng(seed)
+    ha = rng.integers(0, 1024, P).astype(np.int32)
+    hb = ((ha + 1 + rng.integers(0, 8, P)) % 1024).astype(np.int32)
+    w0 = rng.integers(0, 128, P).astype(np.int32)
+    w1 = (w0 + rng.integers(256, 512, P)).clip(max=512).astype(np.int32)
+    return ha, hb, w0, w1
+
+
+def test_decode_extract_packed_waits_for_nothing(gpu):
+    """Staging a batch, its decode and capped extraction, and the copy of
+    its packed row to pinned memory make no call that waits for the card
+    (torch.cuda.set_sync_debug_mode("error") raises on one)."""
+    from fastsmc_tpu_torch.pipelines.fastsmc import _to_host
+
+    arrays = _packed_inputs()
+
+    def queue():
+        staged = [kernels.stage(x, gpu.device) for x in arrays]
+        packed, ages, _ = _packed_call(gpu, [d for d, _ in staged])
+        rows = (_to_host(packed), _to_host(ages))
+        event = torch.cuda.Event()
+        event.record()
+        return staged, rows, event
+
+    queue()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        staged, (packed, ages), event = queue()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    event.synchronize()
+    assert packed.is_pinned() and packed.dtype == torch.int32
+    assert 0 < int(packed[-2]) <= 4096 and ages.shape == (2, 4096)
+
+
+def test_packed_rows_match_the_cpu_plain_path(gpu, ctx):
+    """The card's packed row and age rows unpack to the runs of the plain
+    versions on the CPU: the same (pair, start, end) in the same order,
+    run scores within ATOL per site, posterior-mean ages within relative
+    1e-4, MAP ages equal on at least 99 % of the runs."""
+    from fastsmc_tpu_torch.engine import segments as seg
+
+    arrays = _packed_inputs()
+    got = _packed_call(gpu, arrays)
+    want = _packed_call(kernels.GpuDecoder(ctx, "cpu"), arrays)
+    runs = []
+    for packed, ages, _ in (got, want):
+        start, b, score, nk, nr = seg.unpack_extract_rows(
+            packed.cpu().numpy(), 4096)
+        assert nk <= 4096 and nr <= 4096
+        runs.append((start[:nk], b[:nk], score[:nk],
+                     ages.cpu().numpy()[:, :nk]))
+    (gs, gb, gscore, gages), (ws, wb, wscore, wages) = runs
+    assert len(ws) > 0
+    np.testing.assert_array_equal(gs, ws)
+    np.testing.assert_array_equal(gb, wb)
+    length = wb - ws % 512 + 1
+    assert (np.abs(gscore - wscore) <= ATOL * length).all()
+    np.testing.assert_allclose(gages[0], wages[0], rtol=1e-4)
+    assert (gages[1] == wages[1]).mean() >= 0.99

@@ -98,30 +98,14 @@ def test_example_array_matches_golden(repo_root, tmp_path):
     _assert_same_records(got, want)
 
 
-OFF_PATH = [
-    dict(hashing_backend="device"), dict(mesh="a device mesh"),
-    dict(sort_batches=8), dict(bucket_sites=0),
-    dict(params=dict(permissive_window=True)),
-]
+OFF_PATH = [dict(hashing_backend="device"), dict(mesh="a device mesh")]
 
 
 @pytest.mark.parametrize("kw", OFF_PATH, ids=lambda kw: str(kw))
 def test_off_path_options_raise(tiny_panel, repo_root, tmp_path, kw):
-    kw = dict(kw)
     params = _tiny_params(tiny_panel, repo_root, str(tmp_path / "x"))
-    for k, v in kw.pop("params", {}).items():
-        setattr(params, k, v)
-    params.finalize()
     with pytest.raises(NotImplementedError):
         fastsmc_tpu_torch.FastSMC(params, device="cpu", **kw)
-
-
-def test_resume_raises(tiny_panel, repo_root, tmp_path):
-    f = fastsmc_tpu_torch.FastSMC(
-        _tiny_params(tiny_panel, repo_root, str(tmp_path / "r")),
-        device="cpu")
-    with pytest.raises(NotImplementedError):
-        f.run(verbose=False, resume=True)
 
 
 def test_cuda_without_cuda_raises(tiny_panel, repo_root, tmp_path):

@@ -5,7 +5,10 @@ sit at and next to the four level thresholds.
 
 Run bounds and counts must be identical; scores agree to rtol 1e-6 and
 per-run state sums to atol 1e-6 (f32 sums in another order); the
-posterior-mean age to rtol 1e-5; the MAP age must be equal."""
+posterior-mean age to rtol 1e-5; the MAP age must be equal. The capped
+extraction (extract_packed, the pipeline's) must give the uncapped plain
+version's runs, scores and state sums bit for bit wherever its caps hold
+them, and report the true counts where they do not."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -129,3 +132,55 @@ def test_no_runs_gives_empty_outputs():
     pps = seg.run_pps(torch.zeros((64, 5, 4)), pair, a, b)
     assert pps.shape == (0, 5)
     assert seg.run_ages(pps, torch.ones(5), torch.ones(5), 3).shape == (2, 0)
+
+
+def _packed_runs(packed, kcap, T):
+    start, b, score, nk, nr = seg.unpack_extract_rows(packed.numpy(), kcap)
+    k = min(nk, kcap)
+    pair, a, b, score = seg.runs_from_packed(start[:k], b[:k], score[:k], T)
+    return pair, a, b, score, nk, nr
+
+
+@pytest.mark.parametrize("seed,T,P,s0,s1", CASES)
+def test_capped_extraction_matches_plain(seed, T, P, s0, s1):
+    th = _th(seed, T, P)
+    w0, w1 = _windows(seed, T, P)
+    tm = seg.mask_window(torch.from_numpy(th), torch.from_numpy(w0),
+                         torch.from_numpy(w1))
+    pair, a, b, score = (x.numpy() for x in
+                         seg.extract_kept_runs(tm, s0, s1, PROB))
+    n_raw = len(seg.boundaries_runs(tm, s0, s1, PROB)[0])
+    n = len(pair)
+    rng = np.random.default_rng(seed + 3)
+    post = torch.from_numpy(rng.random((T, 5, P)).astype(np.float32))
+    want_pps = seg.run_pps(post, *(torch.from_numpy(x) for x in (pair, a, b)))
+    for cap, kcap in ((n_raw, n), (T * P, 0), (n_raw + 3, n + 7)):
+        packed, pps = seg.extract_packed(tm, s0, s1, PROB, cap, post,
+                                         pps_cap=n + 1, kcap=kcap)
+        assert packed.dtype == torch.int32
+        assert packed.shape == (3 * (kcap or cap) + 2,)
+        got = _packed_runs(packed, kcap or cap, T)
+        assert got[4:] == (n, n_raw)
+        for x, y in zip(got[:4], (pair, a, b, score)):
+            np.testing.assert_array_equal(x, y)
+        assert pps.shape == (min(n + 1, kcap or cap), 5)
+        assert torch.equal(pps[:n], want_pps) and not pps[n:].any()
+
+
+@pytest.mark.parametrize("seed,T,P,s0,s1", CASES)
+def test_capped_extraction_reports_overflow(seed, T, P, s0, s1):
+    """A kept cap below the count keeps the first kcap runs exactly and
+    reports the true kept count; a raw cap below the count reports the
+    true raw count (the pipeline then redoes the batch)."""
+    th = torch.from_numpy(_th(seed, T, P))
+    pair, a, b, score = (x.numpy() for x in
+                         seg.extract_kept_runs(th, s0, s1, PROB))
+    n, n_raw = len(pair), len(seg.boundaries_runs(th, s0, s1, PROB)[0])
+    kcap = n // 2
+    packed, _ = seg.extract_packed(th, s0, s1, PROB, n_raw, kcap=kcap)
+    got = _packed_runs(packed, kcap, T)
+    assert got[4:] == (n, n_raw) and n > kcap
+    for x, y in zip(got[:4], (pair, a, b, score)):
+        np.testing.assert_array_equal(x, y[:kcap])
+    packed, _ = seg.extract_packed(th, s0, s1, PROB, n_raw // 2)
+    assert _packed_runs(packed, n_raw // 2, T)[5] == n_raw
