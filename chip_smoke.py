@@ -85,6 +85,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      bucket_sites=0 and permissive_window=True, each against the JAX
      package's records (tests/fixtures/example_array.{sort8,arrival,
      permissive}.FastSMC.ibd.gz) as in phase 4.
+ 17. (after 16) the mesh (fastsmc_tpu_torch.parallel) on this card: the
+     FastSMC golden on 1, 2 and 4 shards on cuda:0, and on 4 with every cap
+     started at 8, each writing phase 4's bytes; on 2 shards the exact
+     FastSMC scale leg (phase 5's sha256, its flush groups after the first
+     queued under the sync check, then profiled: wall and device idle
+     share beside phase 5's and 14's; torch's current device unchanged),
+     the ASMC scale leg (sums within relative 1e-6 of phase 8's, two runs
+     byte-identical) and the per-pair leg (phase 7's streams byte for
+     byte). With more than one card the same legs run over the real
+     devices too; on one card a line says that scaling is not measured.
+ 18. (after 17) two processes of this script (--multihost-worker) join one
+     gloo group on localhost and run their tiles of the example panel
+     (jobs=4) on cuda:0; the merged output must cover the pair set (first
+     6 columns) of phase 4's run, and each process must launch the decode
+     kernels (their launches count with the legs').
 Each leg clears the launch counts before it runs and fails unless every
 kernel of its path was launched. The line before the last lists the
 kernels as JSON, each with its time, its plain version's, its bound on the
@@ -1266,7 +1281,7 @@ def golden_leg(FastSMC, DecodingParams, kernels) -> dict:
                              "differs or nothing overflowed")
     for k, v in n.items():
         launches[k] = launches.get(k, 0) + v
-    return launches
+    return launches, path
 
 
 def options_leg(FastSMC, DecodingParams, kernels) -> dict:
@@ -1616,17 +1631,18 @@ def asmc_profiles_leg(ASMC, DecodingParams, kernels, data) -> dict:
 
 
 def asmc_per_pair_leg(ASMC, DecodingParams, kernels, data,
-                      profile: str = "exact"):
-    """The 150 within-sample pairs, batch 64, on ``profile``: streamed
-    means and MAP states against the decode_pairs API for three pairs.
-    Returns (launches, (means, MAP states))."""
+                      profile: str = "exact", mesh=None, tag: str = ""):
+    """The 150 within-sample pairs, batch 64, on ``profile`` (on ``mesh``
+    where given; ``tag`` names the leg's files): streamed means and MAP
+    states against the decode_pairs API for three pairs. Returns
+    (launches, (means, MAP states))."""
     root = os.path.join(OUT, "asmc_pp" + ("" if profile == "exact" else
-                                          f"_{profile}"))
+                                          f"_{profile}") + tag)
     params = DecodingParams.asmc(
         EXAMPLE, DQ, root, use_known_seed=True, within_only=True,
         do_per_pair_posterior_mean=True, do_per_pair_map=True)
     a = ASMC(params, data=data, device=DEVICE, batch_size=64,
-             decode_profile=profile)
+             decode_profile=profile, mesh=mesh)
     _, launches = run_leg(kernels, f"ASMC per-pair ({profile})",
                           decode_kernels(kernels, "array", profile),
                           lambda: a.decode_all_in_job(verbose=False))
@@ -1662,16 +1678,16 @@ def per_pair_profile_check(fast, exact) -> None:
 
 
 def asmc_scale_leg(ASMC, DecodingParams, kernels, data, mode="array",
-                   profile="exact", batch_size=8192):
+                   profile="exact", batch_size=8192, mesh=None, tag=""):
     """jobs=1000, job 1 of the scale panel's 2N^2 - N pairs, posterior sums
     and major/minor sums, twice, in batches of ``batch_size`` pairs (None:
     the cap ASMC sets from the card's free memory, taken by the first run
-    and kept for the second); returns (launches, the sums, the second run's
-    row)."""
+    and kept for the second), on ``mesh`` where given (``tag`` names the
+    leg's files); returns (launches, the sums, the second run's row)."""
     runs, digests, sums = [], [], []
     dq = None
-    tag = "" if (mode, profile) == ("array", "exact") else \
-        f"_{mode}_{profile}"
+    tag = ("" if (mode, profile) == ("array", "exact") else
+           f"_{mode}_{profile}") + tag
     for i in range(2):
         root = os.path.join(OUT, f"asmc_scale{tag}{i}")
         params = DecodingParams.asmc(
@@ -1680,7 +1696,8 @@ def asmc_scale_leg(ASMC, DecodingParams, kernels, data, mode="array",
             decoding_mode=mode)
         torch.cuda.empty_cache()
         a = ASMC(params, data=data, dq=dq, device=DEVICE,
-                 batch_size=batch_size or 1 << 30, decode_profile=profile)
+                 batch_size=batch_size or 1 << 30, decode_profile=profile,
+                 mesh=mesh)
         if a.batch_size != (batch_size or a.batch_size):
             raise AssertionError(f"ASMC scale leg: batch {a.batch_size}, "
                                  f"not the first run's {batch_size}")
@@ -1704,6 +1721,7 @@ def asmc_scale_leg(ASMC, DecodingParams, kernels, data, mode="array",
         mm_err = float(np.abs(res.sum_over_pairs00 + res.sum_over_pairs01
                               + res.sum_over_pairs11 - total).max())
         row = dict(mode=mode, profile=profile,
+                   shards=None if mesh is None else mesh.size,
                    run="cold" if i == 0 else "warm", pairs=n,
                    batch_size=a.batch_size,
                    batches=-(-n // a.batch_size), wall_s=wall,
@@ -1799,6 +1817,222 @@ def profile_fastsmc_leg(FastSMC, DecodingParams, kernels, data) -> dict:
         "overflow_redos"], max_memory_allocated=torch.cuda
         .max_memory_allocated(), launches=launches)
     log("[scale] profiled warm run (exact): " + json.dumps(res))
+    return launches, res
+
+
+# ---------------------------------------------------------------------------
+# 17.-18. the mesh on one card, and two processes over gloo
+# ---------------------------------------------------------------------------
+
+def pair_set(path: str, n: int = 6) -> set:
+    """The records' first ``n`` columns, as a set."""
+    return {tuple(r[:n]) for r in read_records(path)}
+
+
+def mesh_golden_leg(FastSMC, DecodingParams, kernels, mesh, tag: str,
+                    want: str, caps=None) -> dict:
+    """The example panel's FastSMC golden run on ``mesh`` (every cap
+    started at ``caps`` where given): its decompressed output must have
+    sha256 ``want`` (phase 4's)."""
+    f = FastSMC(DecodingParams.fastsmc_defaults(
+        EXAMPLE, DQ, os.path.join(OUT, f"example_{tag}"),
+        use_known_seed=True), mesh=mesh)
+    if caps:
+        f._seg_cap = f._kept_cap = f._pps_cap = caps
+    path, launches = run_leg(kernels, f"FastSMC golden ({tag})",
+                             DECODE_KERNELS, lambda: f.run(verbose=False))
+    same = decompressed_sha256(path) == want
+    log(f"[mesh] golden on {mesh.size} shards ({tag}): output equal to "
+        f"phase 4's byte for byte: {same}, {f.stats['overflow_redos']} "
+        f"overflow redos, launches {launches}")
+    if not same or (caps and f.stats["overflow_redos"] < 1):
+        raise AssertionError(f"mesh golden leg ({tag}) failed")
+    return launches
+
+
+def mesh_scale_leg(FastSMC, DecodingParams, kernels, data, mesh, tag: str,
+                   want: str, phase5: dict):
+    """The exact FastSMC scale leg on ``mesh``: once with its flush groups
+    after the first queued under the sync check, once under torch.profiler
+    (wall, device idle share); both outputs must have phase 5's sha256
+    ``want``, and torch's current device must be where it was. Returns
+    (launches, the rows)."""
+    current = torch.cuda.current_device()
+    rows, launches = [], {}
+    for i in range(2):
+        f = FastSMC(scale_params(DecodingParams, f"scale_{tag}{i}"),
+                    data=data, mesh=mesh)
+        checked = check_no_sync(f) if i == 0 else None
+        torch.cuda.reset_peak_memory_stats()
+        if i == 0:
+            t0 = time.perf_counter()
+            path, n = run_leg(kernels, f"FastSMC scale ({tag})",
+                              DECODE_KERNELS, lambda: f.run(verbose=False))
+            row = dict(run="sync-checked", wall_s=time.perf_counter() - t0,
+                       groups_queued_without_sync=checked["groups"])
+        else:
+            row, n = run_leg(kernels, f"FastSMC scale ({tag}, profiled)",
+                             DECODE_KERNELS, lambda: device_profile(
+                                 lambda: f.run(verbose=False),
+                                 KERNEL_GROUPS))
+            row["run"] = "profiled"
+            path = f.params.ibd_output_path()
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        row.update(shards=mesh.size, tag=tag, records=f.n_segments,
+                   overflow_redos=f.stats["overflow_redos"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   roofline=f.roofline(), launches=n,
+                   sha256=decompressed_sha256(path),
+                   current_device=torch.cuda.current_device())
+        log("[mesh] " + json.dumps(row))
+        rows.append(row)
+        os.remove(path)
+        if row["sha256"] != want or row["current_device"] != current \
+                or (checked is not None and checked["groups"] < 1):
+            raise AssertionError(f"mesh scale leg ({tag}): {row}")
+    log(f"[mesh] scale leg on {mesh.size} shards ({tag}): phase 5's sha256 "
+        f"in both runs; wall {rows[0]['wall_s']:.3f} s (sync-checked) / "
+        f"{rows[1]['wall_s']:.3f} s (profiled), device idle "
+        f"{rows[1].get('device_idle_share')}; phase 5: wall "
+        f"{phase5['fastsmc_wall_s']}, phase 14: idle "
+        f"{phase5['fastsmc_idle']}")
+    return launches, rows
+
+
+def mesh_phase(FastSMC, ASMC, DecodingParams, kernels, scale_data,
+               example, ref: dict) -> dict:
+    """Phase 17: the mesh on this card (two and four shards on cuda:0) and,
+    where the machine has more cards, over the real devices. ``ref`` holds
+    the meshless legs' results: phase 4's and 5's sha256, phase 8's sums,
+    phase 7's streams, phase 5's wall and phase 14's idle share. Returns
+    the launches of every leg."""
+    from fastsmc_tpu_torch.parallel import make_mesh
+    launches = {}
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+
+    meshes = [("one card x2", make_mesh(devices=["cuda:0"] * 2), "mesh2")]
+    real = torch.cuda.device_count()
+    if real > 1:
+        S = 1 << (min(real, 8).bit_length() - 1)
+        meshes.append((f"{S} cards", make_mesh(S), f"cards{S}"))
+    else:
+        log("[mesh] one card: the mesh runs its shards on cuda:0 one after "
+            "the other; scaling over devices is not measured")
+    for S in (1, 2, 4):
+        add(mesh_golden_leg(FastSMC, DecodingParams, kernels,
+                            make_mesh(devices=["cuda:0"] * S), f"mesh{S}",
+                            ref["golden_sha256"]))
+    add(mesh_golden_leg(FastSMC, DecodingParams, kernels,
+                        make_mesh(devices=["cuda:0"] * 4), "mesh4_caps8",
+                        ref["golden_sha256"], caps=8))
+    for label, mesh, tag in meshes:
+        if tag != "mesh2":
+            add(mesh_golden_leg(FastSMC, DecodingParams, kernels, mesh, tag,
+                                ref["golden_sha256"]))
+        add(mesh_scale_leg(FastSMC, DecodingParams, kernels, scale_data,
+                           mesh, tag, ref["scale_sha256"], ref)[0])
+        torch.cuda.empty_cache()
+        n, sums, row = asmc_scale_leg(ASMC, DecodingParams, kernels,
+                                      scale_data, mesh=mesh, tag=f"_{tag}")
+        add(n)
+        rel = max(float((np.abs(x - y) / np.maximum(np.abs(y), 1e-30))
+                        .max()) for x, y in zip(sums, ref["asmc_sums"]))
+        log(f"[mesh] ASMC scale leg on {label}: the four sum matrices within "
+            f"relative {rel:.3g} of phase 8's (gate 1e-6), wall "
+            f"{row['wall_s']:.3f} s")
+        if rel > 1e-6:
+            raise AssertionError(f"mesh ASMC scale leg ({tag}): rel {rel}")
+        torch.cuda.empty_cache()
+        n, _ = asmc_per_pair_leg(ASMC, DecodingParams, kernels, example,
+                                 mesh=mesh, tag=f"_{tag}")
+        add(n)
+        same = all(decompressed_sha256(
+            os.path.join(OUT, f"asmc_pp_{tag}.{kind}.gz"))
+            == decompressed_sha256(os.path.join(OUT, f"asmc_pp.{kind}.gz"))
+            for kind in ("perPairPosteriorMeans", "perPairMAP"))
+        log(f"[mesh] ASMC per-pair leg on {label}: streams equal to phase "
+            f"7's byte for byte: {same}")
+        if not same:
+            raise AssertionError(f"mesh per-pair leg ({tag}) failed")
+    return launches
+
+
+def multihost_worker(rank: int, port: int, out: str) -> None:
+    """One process of phase 18: joins the gloo group on localhost, runs its
+    tiles of the example panel (jobs=4) on cuda:0 and prints its paths,
+    the world size and its kernel launches as JSON."""
+    import torch.distributed as dist
+    from fastsmc_tpu_torch import DecodingParams
+    from fastsmc_tpu_torch.engine import kernels
+    from fastsmc_tpu_torch.parallel import multihost
+    if multihost.initialize(f"localhost:{port}", 2, rank) != rank:
+        raise AssertionError("multihost worker: wrong rank")
+    params = DecodingParams.fastsmc_defaults(
+        EXAMPLE, DQ, os.path.join(out, "mh"), use_known_seed=True)
+    paths = multihost.run_fastsmc_multihost(params, device="cuda:0")
+    torch.cuda.synchronize()
+    print(json.dumps({"rank": dist.get_rank(), "world":
+                      dist.get_world_size(), "paths": paths,
+                      "launches": dict(kernels.LAUNCHES)}), flush=True)
+    dist.barrier()          # neither leaves while the other uses the store
+    dist.destroy_process_group()
+
+
+def multihost_phase(want_path: str) -> dict:
+    """Phase 18: two processes of this script join one gloo group on
+    localhost and decode their tiles of the example panel (jobs=4) on
+    cuda:0; the merged output must cover the pair set (first 6 columns)
+    of phase 4's single run, and each process must have launched the
+    decode kernels. Returns the two processes' launches."""
+    import socket
+
+    from fastsmc_tpu_torch.parallel import merge_ibd_outputs
+    out = os.path.join(OUT, "multihost")
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(rank), str(port), out], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    results = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"multihost worker failed:\n{stdout}\n"
+                                     f"{stderr[-4000:]}")
+            results.append(json.loads(stdout.splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    paths = [q for r in results for q in r["paths"]]
+    merged = merge_ibd_outputs(paths, os.path.join(out, "merged.ibd.gz"))
+    got, want = pair_set(merged), pair_set(want_path)
+    launches = {}
+    for r in results:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"[multihost] 2 processes over gloo: ranks "
+        f"{[r['rank'] for r in results]}, world sizes "
+        f"{[r['world'] for r in results]}, {len(paths)} tiles, merged pair "
+        f"set equal to phase 4's single run: {got == want} ({len(got)} "
+        f"pairs), {wall:.1f} s with the processes' start, launches "
+        f"{[r['launches'] for r in results]}")
+    if got != want or not want or any(r["world"] != 2 for r in results) \
+            or len(paths) != 4 or any(
+                min(r["launches"].get(k, 0) for k in DECODE_KERNELS) < 1
+                for r in results):
+        raise AssertionError("multihost phase failed")
     return launches
 
 
@@ -1860,12 +2094,18 @@ def main() -> int:
     ap.add_argument("--fastsmc-parent", metavar="DIR",
                     help="first A/B the exact FastSMC scale leg against the "
                     "checkout at DIR (wall, device idle share, roofline)")
+    ap.add_argument("--multihost-worker", nargs=3,
+                    metavar=("RANK", "PORT", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ab_only and not args.ab_parent:
         ap.error("--ab-only needs --ab-parent")
     # 1. the card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    if args.multihost_worker:
+        rank, port, out = args.multihost_worker
+        multihost_worker(int(rank), int(port), out)
+        return 0
     log(f"[card] {card_line()}")
     log(f"[card] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
@@ -1943,12 +2183,19 @@ def main() -> int:
         scale_data = scale_panel()
     example = load_data(DecodingParams.asmc(EXAMPLE, DQ, OUT, fastsmc=True,
                                             use_known_seed=True))
-    add(golden_leg(FastSMC, DecodingParams, kernels))
+    n, golden_path = golden_leg(FastSMC, DecodingParams, kernels)
+    add(n)
     n, exact_records, row = scale_leg(FastSMC, DecodingParams, kernels,
                                       scale_data)
     add(n, "fastsmc_scale")
+    mesh_ref = dict(golden_sha256=decompressed_sha256(golden_path),
+                    scale_sha256=row["sha256"],
+                    fastsmc_wall_s=row["wall_s"])
     # 14.-15. the exact scale leg profiled, then stopped and resumed
-    add(profile_fastsmc_leg(FastSMC, DecodingParams, kernels, scale_data))
+    n, res = profile_fastsmc_leg(FastSMC, DecodingParams, kernels,
+                                 scale_data)
+    add(n)
+    mesh_ref["fastsmc_idle"] = res.get("device_idle_share")
     add(resume_leg(FastSMC, DecodingParams, kernels, scale_data,
                    row["sha256"]))
     torch.cuda.empty_cache()
@@ -1959,6 +2206,7 @@ def main() -> int:
     n, exact_sums, _ = asmc_scale_leg(ASMC, DecodingParams, kernels,
                                       scale_data)
     add(n, "asmc_scale")
+    mesh_ref["asmc_sums"] = exact_sums
     profile_asmc_leg(ASMC, DecodingParams, scale_data)
     add(no_hashing_leg(FastSMC, DecodingParams, kernels, example))
     # 11. sequence mode
@@ -1995,6 +2243,11 @@ def main() -> int:
     add(fastsmc_profiles_leg(FastSMC, DecodingParams, kernels))
     # 16. the entry options against the JAX package's records
     add(options_leg(FastSMC, DecodingParams, kernels))
+    torch.cuda.empty_cache()
+    # 17. the mesh on this card; 18. two processes over gloo
+    add(mesh_phase(FastSMC, ASMC, DecodingParams, kernels, scale_data,
+                   example, mesh_ref), "mesh")
+    add(multihost_phase(golden_path), "multihost")
 
     # the port imports nothing of JAX or of the JAX package; an A/B parent
     # from before the port owned its host modules imports fastsmc_tpu, so

@@ -7,7 +7,9 @@ the JAX package's paths and module names (``config``, ``io/``, ``native/``,
 ``hashing/germline.py``, ``utils/``, ``engine/{emissions,dense,oracle}.py``)
 and owns everything that touches the device: decode tables, the forward,
 backward+combine and block reduction kernels, run extraction, the FastSMC
-and ASMC pipelines, and the alpha-wall probe (``probes/alpha_wall.py``).
+and ASMC pipelines, their mesh over local devices and job tiles across
+processes (``parallel/``), and the alpha-wall probe
+(``probes/alpha_wall.py``).
 
 Entry points::
 

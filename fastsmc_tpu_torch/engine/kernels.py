@@ -134,6 +134,30 @@ def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _mm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a @ x`` for x [S, P], with each column's bits independent of P: a
+    matrix product's order of additions a column does not depend on the
+    width, but a one-column product is a matrix-vector one, so one column
+    is multiplied as two. The plain versions build on it and on
+    :func:`_col_sum`, so that a pair's bits do not depend on its batch, as
+    the kernels' do not."""
+    if x.shape[-1] == 1:
+        return (a @ x.expand(-1, 2))[:, :1]
+    return a @ x
+
+
+def _col_sum(x: torch.Tensor, ones: torch.Tensor) -> torch.Tensor:
+    """Sum over the state axis of ``x`` [S, P], per pair: ``[P]``, as a
+    product with ``ones`` (an f32 ones matrix [2, >= S]); torch's CPU
+    reduction over the leading axis picks its order of additions from the
+    width."""
+    return _mm(ones[:, :x.shape[0]], x)[0]
+
+
+def _ones(KP: int, device) -> torch.Tensor:
+    return torch.ones((2, KP), dtype=torch.float32, device=device)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -164,22 +188,22 @@ def forward_reference(Mf, em, obs, isp, ops, mask, seq: Optional[Seq] = None,
         M2 = rnd(Mf.index_select(0, seq.rops).float())
     alpha = torch.empty((T, Mf.shape[-1], obs.shape[2]),
                         dtype=alpha_dtype(profile), device=obs.device)
+    ones = _ones(Mf.shape[-1], obs.device)
     c = isp[:, None] * _emission(em[0], obs[0])
-    c = c / c.sum(dim=0, keepdim=True)
+    c = c / _col_sum(c, ones)
     alpha[0] = c
     for t in range(1, T):
         if seq is None:
-            c = (M[t] @ rnd(c)) * _emission(em[t], obs[t])
+            c = _mm(M[t], rnd(c)) * _emission(em[t], obs[t])
         else:
             # kernels.py:128-134: homozygous half-step, then marker step
-            mid = (M[t] @ rnd(c)) * seq.hem[t][:, None]
-            c = (M2[t] @ rnd(mid)) * _emission(em[t], obs[t])
+            mid = _mm(M[t], rnd(c)) * seq.hem[t][:, None]
+            c = _mm(M2[t], rnd(mid)) * _emission(em[t], obs[t])
         if norm_block:
             if t % BLOCK_SITES == BLOCK_SITES - 1:
-                c = c * (1.0 / c.sum(dim=0, keepdim=True))
+                c = c * (1.0 / _col_sum(c, ones))
         else:
-            s = c.sum(dim=0, keepdim=True)
-            c = c * torch.where(mask[t] != 0, 1.0 / s, 1.0)
+            c = c * torch.where(mask[t] != 0, 1.0 / _col_sum(c, ones), 1.0)
         alpha[t] = c
     return alpha
 
@@ -207,36 +231,39 @@ def backward_combine_reference(Mb, em, obs, alpha, ops, mask, K: int,
                   threshold_sums=(T, P), major_minor_sums=(T, 3, KP))
     out = {name: torch.empty(shapes[name], **f32)
            for name in BwdOutputs._fields if getattr(outs, name)}
+    ones = _ones(KP, dev)
     beta = torch.where(torch.arange(KP, device=dev) < K, 1.0 / K, 0.0)
     beta = beta.to(torch.float32)[:, None].expand(KP, P)
     for pos in range(T - 1, -1, -1):
         if pos < T - 1:
             e = _emission(em[pos + 1], obs[pos + 1])
             if seq is None:
-                c = M[pos] @ rnd(beta * e)
+                c = _mm(M[pos], rnd(beta * e))
             else:
                 # kernels.py:227-230
-                mid = M[pos] @ rnd(beta * seq.hem[pos][:, None])
-                c = M2[pos] @ rnd(mid * e)
+                mid = _mm(M[pos], rnd(beta * seq.hem[pos][:, None]))
+                c = _mm(M2[pos], rnd(mid * e))
             if norm_block:
                 g = T - 1 - pos
-                beta = c * (1.0 / c.sum(dim=0, keepdim=True)) \
+                beta = c * (1.0 / _col_sum(c, ones)) \
                     if g % BLOCK_SITES == BLOCK_SITES - 1 else c
             else:
-                s = c.sum(dim=0, keepdim=True)
-                beta = c * torch.where(mask[pos] != 0, 1.0 / s, 1.0)
+                beta = c * torch.where(mask[pos] != 0,
+                                       1.0 / _col_sum(c, ones), 1.0)
         post = alpha[pos].float() * beta
-        post = post / post.sum(dim=0, keepdim=True)
+        post = post / _col_sum(post, ones)
         if outs.posterior:
             out["posterior"][pos] = post
         if outs.posterior_sums:
             out["posterior_sums"][pos] = post.sum(dim=1)
         if outs.per_pair_mean:
-            out["per_pair_mean"][pos] = (post * exp_times[:, None]).sum(dim=0)
+            out["per_pair_mean"][pos] = _col_sum(post * exp_times[:, None],
+                                                 ones)
         if outs.per_pair_map:
             out["per_pair_map"][pos] = post.argmax(dim=0).float()
         if outs.threshold_sums:
-            out["threshold_sums"][pos] = post[:state_threshold].sum(dim=0)
+            out["threshold_sums"][pos] = _col_sum(post[:state_threshold],
+                                                  ones)
         if outs.major_minor_sums:
             # augmentSumOverPairs classes (HMM.cpp:1063-1069)
             oz, oh = obs[pos, 0], obs[pos, 1]
@@ -418,6 +445,17 @@ class GpuDecoder:
         self.sequence = self.tables.sequence
         self.K = self.tables.K
         self.L = self.tables.L
+
+    @property
+    def exp_times(self) -> torch.Tensor:
+        """The expected times [KP] the ``per_pair_mean`` output weights the
+        posterior by; set it with K times (``DecodeTables.set_expected_
+        times``)."""
+        return self.tables.exp_times
+
+    @exp_times.setter
+    def exp_times(self, times) -> None:
+        self.tables.set_expected_times(times)
 
     def prologue(self, hap_a, hap_b, t0: int, T: int):
         """Kernel inputs for the window [t0, t0+T) (kernels.py:467-504):

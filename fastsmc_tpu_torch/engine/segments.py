@@ -16,8 +16,9 @@ the run falls in its row, or on the other runs, and a redo gives the same
 bits. :func:`boundaries_runs` and :func:`extract_kept_runs` return exactly
 the kept runs with no cap; they are the plain version the tests hold the
 capped extraction to, and wait for the device (``torch.nonzero``). The two
-host helpers, ``state_threshold`` and ``probability_threshold``, and the
-host unpack of a packed row are copies of that module's.
+host helpers, ``state_threshold`` and ``probability_threshold``, the
+host unpack of a packed row and the merge of a mesh's per-shard rows are
+copies of that module's.
 """
 
 from __future__ import annotations
@@ -250,6 +251,28 @@ def unpack_extract_rows(packed_row: np.ndarray, kcap: int):
     score = packed_row[2 * kcap:3 * kcap].view(np.float32)
     return (start, b, score, int(packed_row[3 * kcap]),
             int(packed_row[3 * kcap + 1]))
+
+
+def merge_packed_shards(mat: np.ndarray, T: int, P_local: int):
+    """Host merge of a mesh's per-shard packed rows ``mat`` [S, 3*kcap+2]
+    (``ShardedDecoder.decode_extract_packed``; segments.py:485-511). Shard
+    s holds its local pairs of the s-th contiguous slice of the pair axis:
+    its run starts offset by ``s * P_local * T`` and concatenated in shard
+    order are the meshless extraction's pair-major stream. Returns
+    ``(start int64, b, score, ns_kept, ns_raw)`` with per-shard counts: a
+    shard's ``ns_kept[s] > kcap`` (or ``ns_raw[s]`` over the raw cap)
+    means its row was truncated and the batch is redone at grown caps."""
+    kcap = (mat.shape[1] - 2) // 3
+    parts, ns_kept, ns_raw = [], [], []
+    for s in range(mat.shape[0]):
+        start, b, score, nk, nr = unpack_extract_rows(mat[s], kcap)
+        ns_kept.append(nk)
+        ns_raw.append(nr)
+        k = min(nk, kcap)
+        parts.append((start[:k].astype(np.int64) + s * P_local * T, b[:k],
+                      score[:k]))
+    return (*(np.concatenate([p[i] for p in parts]) for i in range(3)),
+            ns_kept, ns_raw)
 
 
 def runs_from_packed(start: np.ndarray, b: np.ndarray, score: np.ndarray,

@@ -11,7 +11,10 @@ explicit pairs and returns the summaries of ``DecodePairsReturnStruct``.
 
 The kernels take any number of pairs, so a partial last batch decodes
 exactly its real pairs: the JAX package's padding with copies of the last
-pair, and the second decode that subtracts them, have no counterpart.
+pair, and the second decode that subtracts them, have no counterpart. With
+a mesh (``parallel.sharding``) a batch is split over its shards; of a last
+batch that does not divide over them, the pairs past the last whole
+multiple of the mesh size decode on the first shard's device.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..engine.tables import padded_states
 from ..io import writers
 from ..io.decoding_quantities import DecodingQuantities
 from ..io.haps import Data, load_data
+from ..parallel.sharding import ShardedDecoder, on_device
 
 # The helpers and result types below are copies of
 # fastsmc_tpu/pipelines/asmc.py:45-86 and :170-197.
@@ -134,26 +138,31 @@ def job_pair_range(n_ind: int, params: DecodingParams) -> Tuple[int, int]:
 
 
 class ASMC:
-    """All-pairs / targeted-pair decoding on one CUDA device."""
+    """All-pairs / targeted-pair decoding on one CUDA device or a mesh."""
 
     pairs_from_flat_indices = staticmethod(pairs_from_flat_indices)
 
     def __init__(self, params: DecodingParams,
                  data: Optional[Data] = None,
                  dq: Optional[DecodingQuantities] = None,
-                 device="cuda",
+                 device=None,
                  batch_size: Optional[int] = None,
                  decode_profile: str = "exact",
                  mesh=None):
         """Arguments as the JAX package's ``ASMC``, with ``device`` (where
-        the tables live and the kernels run: "cuda", or "cpu" for the
-        plain versions) in place of ``use_pallas``. ``decode_profile`` is
-        "exact", "fast" or "turbo" (the JAX package's profiles; fast and
-        turbo give the same bits). ``params.no_batches`` decodes pair by
-        pair with the scalar ``OracleDecoder`` on the host. A mesh raises
-        ``NotImplementedError`` until it is ported."""
-        if mesh is not None:
-            raise NotImplementedError("not ported yet: ['mesh']")
+        the tables live and the kernels run: "cuda", the default, or "cpu"
+        for the plain versions) in place of ``use_pallas``.
+        ``decode_profile`` is "exact", "fast" or "turbo" (the JAX package's
+        profiles; fast and turbo give the same bits). ``mesh``
+        (``parallel.sharding.make_mesh``) shards every batch over its
+        devices, which then rule: the batch size must be a multiple of its
+        size, and a ``device`` that names another device raises
+        ``ValueError``. ``params.no_batches`` decodes pair by pair with the
+        scalar ``OracleDecoder`` on the host, and drops the mesh."""
+        if params.no_batches:
+            mesh = None
+        if mesh is not None and device is not None:
+            mesh.check_device(device)
         if decode_profile not in PROFILES:
             raise ValueError(f"unknown decode profile {decode_profile!r}")
         self.params = params
@@ -161,21 +170,34 @@ class ASMC:
         self.dq = dq if dq is not None else DecodingQuantities.load(
             params.decoding_quant_file)
         self.ctx = DecodeContext.build(params, self.data, self.dq)
+        self.batch_size = batch_size or max(params.batch_size, 64)
+        self._shards = 1 if mesh is None else mesh.size
         if params.no_batches:
             # reference noBatches debug path: scalar oracle per pair
             self.decoder = OracleDecoder(self.ctx)
+            devices = []
+        elif mesh is not None:
+            if self.batch_size % mesh.size:
+                raise ValueError(f"batch_size {self.batch_size} must be a "
+                                 f"multiple of the mesh size {mesh.size}")
+            self.decoder = ShardedDecoder(self.ctx, mesh, decode_profile)
+            devices = list(dict.fromkeys(mesh.devices))
         else:
-            self.decoder = GpuDecoder(self.ctx, device, decode_profile)
-        self.batch_size = batch_size or max(params.batch_size, 64)
-        if isinstance(self.decoder, GpuDecoder) \
-                and self.decoder.device.type == "cuda":
-            # a batch may take half the card's free memory; sums are then
-            # taken over smaller batches, which changes only their f32
-            # rounding
-            free, _ = torch.cuda.mem_get_info(self.decoder.device)
-            self.batch_size = min(self.batch_size, max_batch(
-                free, self.data.sites, self.dq.states,
-                alpha_dtype(decode_profile).itemsize))
+            self.decoder = GpuDecoder(
+                self.ctx, "cuda" if device is None else device,
+                decode_profile)
+            devices = [self.decoder.device]
+        # a shard's batch may take half its card's free memory; sums are
+        # then taken over smaller batches, which changes only their f32
+        # rounding
+        for dev in devices:
+            if dev.type == "cuda":
+                free, _ = torch.cuda.mem_get_info(dev)
+                self.batch_size = min(
+                    self.batch_size, self._shards * max_batch(
+                        free, self.data.sites, self.dq.states,
+                        alpha_dtype(decode_profile).itemsize))
+        self._device_decoder = bool(devices)
 
         # expected coalescent times for per-pair posterior means: from
         # --expectedCoalTimesFile when given (HMM.cpp:1741-1748, non-FastSMC
@@ -189,10 +211,9 @@ class ASMC:
                 raise ValueError(
                     f"{ect_file} has {len(self.expected_coal_times)} "
                     f"times, expected {self.dq.states}")
-            if isinstance(self.decoder, GpuDecoder):
+            if self._device_decoder:
                 # the per_pair_mean kernel output reads the tables' times
-                self.decoder.tables.set_expected_times(
-                    self.expected_coal_times)
+                self.decoder.exp_times = self.expected_coal_times
 
     # ------------------------------------------------------------------
     def _job_pair_range(self) -> Tuple[int, int]:
@@ -220,8 +241,8 @@ class ASMC:
         arrays, at ``GpuDecoder.decode_pairs``'s shapes. The oracle path
         derives them from its posterior as the JAX package's plain path
         does (asmc.py:306-328)."""
-        if isinstance(self.decoder, GpuDecoder):
-            r = self.decoder.decode_pairs(h1, h2, t0, t_len, outs, 0)
+        if self._device_decoder:
+            r = self._device_decode(h1, h2, t0, t_len, outs)
             return {k: v.cpu().numpy() for k, v in r.items()}
         post = self._full_posterior(h1, h2, t_len, t0)        # [T, K, n]
         r = {}
@@ -243,6 +264,24 @@ class ASMC:
                 [np.einsum("tkp,pt->tk", post, c.astype(np.float32))
                  for c in w], axis=1)
         return r
+
+    def _device_decode(self, h1, h2, t0: int, t_len: int, outs: BwdOutputs
+                       ) -> dict:
+        """The decoder's outputs for the pairs. On a mesh, the pairs past
+        the last whole multiple of the mesh size decode on the first
+        shard's device and join the rest through ``ShardedDecoder.combine``
+        (the sums added in float64, the per-pair outputs in pair order)."""
+        dec = self.decoder
+        k = len(h1) - len(h1) % self._shards
+        if k == len(h1):
+            return dec.decode_pairs(h1, h2, t0, t_len, outs, 0)
+        with on_device(dec.devices[0]):
+            tail = dec.shard_decoder(0).decode_pairs(h1[k:], h2[k:], t0,
+                                                     t_len, outs, 0)
+        if k == 0:
+            return tail
+        return dec.combine([dec.decode_pairs(h1[:k], h2[:k], t0, t_len,
+                                             outs, 0), tail])
 
     # ------------------------------------------------------------------
     def decode_all_in_job(self, verbose: bool = True,
@@ -352,11 +391,17 @@ class ASMC:
             site_was_flipped=self.data.site_was_flipped)
 
     def _full_posterior(self, h1, h2, t_len, t0_pos: int = 0) -> np.ndarray:
-        """Posterior [t_len, K, n] of the pairs on the host."""
-        if isinstance(self.decoder, GpuDecoder):
+        """Posterior [t_len, K, n] of the pairs on the host; on a mesh the
+        pair axis is padded to a multiple of its size with copies of the
+        last pair (asmc.py:417-424)."""
+        if self._device_decoder:
+            n = len(h1)
+            fill = -n % self._shards
+            h1, h2 = (np.concatenate([h, np.full(fill, h[-1], h.dtype)])
+                      for h in (h1, h2))
             r = self.decoder.decode_pairs(h1, h2, t0_pos, t_len,
                                           BwdOutputs(posterior=True), 0)
-            return r["posterior"].cpu().numpy()
+            return r["posterior"][..., :n].cpu().numpy()
         return np.asarray(self.decoder.decode_pairs(h1, h2, t0_pos, t_len))
 
     # ------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Counterpart of ``fastsmc_tpu/pipelines/fastsmc.py`` in array and sequence
 mode, on the exact, fast and turbo profiles, with the reference's record
-columns and entry options (a mesh and the device hashing scan excepted). In
+columns and entry options (the device hashing scan excepted). In
 hashing mode the GERMLINE2 scan runs natively on a producer thread; each
 candidate is bucketed into the smallest aligned power-of-two window holding
 its 0.5 cM-padded match, and a full bucket is one batch (or, with
@@ -14,10 +14,13 @@ chromosome in batches of ``batch_size``.
 A flush group of batches is queued on the card without waiting for it:
 per batch the two CUDA kernels, the window mask and run extraction against
 capped buffers; then one stacked copy of the packed rows (and age rows) to
-pinned host memory and one CUDA event. The host then drains the previous
-group (waits on its event, unpacks, writes) while this one runs. A batch
-whose runs overflow a cap is redone at grown caps, with the same bytes a
-large enough cap would have given. Record order equals the JAX package's.
+pinned host memory and one CUDA event a device. The host then drains the
+previous group (waits on its events, unpacks, writes) while this one runs.
+A batch whose runs overflow a cap is redone at grown caps, with the same
+bytes a large enough cap would have given. With a mesh
+(``parallel.sharding``) each batch is split over its shards, which extract
+their own runs; the per-shard rows are merged at the drain, and any shard
+over a cap redoes the batch. Record order equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..hashing.germline import HashingScan
 from ..io import writers
 from ..io.decoding_quantities import DecodingQuantities
 from ..io.haps import Data, load_data
+from ..parallel.sharding import ShardedDecoder, on_device
 from ..utils.timer import PhaseTimer
 from .asmc import job_pair_range, pairs_from_flat_indices
 
@@ -96,13 +100,13 @@ def pad_to_positions(genetic_positions: np.ndarray, to_pos: np.ndarray,
 
 
 class FastSMC:
-    """End-to-end FastSMC run for one job on one CUDA device, with or
-    without hashing."""
+    """End-to-end FastSMC run for one job on one CUDA device or a mesh of
+    devices, with or without hashing."""
 
     def __init__(self, params: DecodingParams,
                  data: Optional[Data] = None,
                  dq: Optional[DecodingQuantities] = None,
-                 device="cuda",
+                 device=None,
                  hashing_backend: str = "host",
                  decode_profile: str = "exact",
                  mesh=None,
@@ -116,9 +120,13 @@ class FastSMC:
         0 with ``sort_batches > 1``; 0: arrival-order batches over their
         members' padded union); ``flush_group`` is the number of batches
         queued before the previous group is drained (0: 8). ``device`` is
-        where the tables live and the kernels run: "cuda" (raises without
-        CUDA) or "cpu" (the plain versions, for tests). A mesh and
-        ``hashing_backend="device"`` raise ``NotImplementedError``."""
+        where the tables live and the kernels run: "cuda" (the default;
+        raises without CUDA) or "cpu" (the plain versions, for tests).
+        ``mesh`` (``parallel.sharding.make_mesh``) shards every batch over
+        its devices, which then rule: ``batch_size`` must be a multiple of
+        its size, and a ``device`` that names another device raises
+        ``ValueError``. ``hashing_backend="device"`` raises
+        ``NotImplementedError``."""
         if hashing_backend == "device":
             raise NotImplementedError(
                 "hashing_backend='device' (the sort-based scan of "
@@ -128,21 +136,32 @@ class FastSMC:
         if hashing_backend != "host":
             raise ValueError(f"unknown hashing backend {hashing_backend!r}")
         if mesh is not None:
-            raise NotImplementedError("mesh: multi-device sharding is not "
-                                      "ported yet")
+            if device is not None:
+                mesh.check_device(device)
+            if params.batch_size % mesh.size:
+                raise ValueError(f"batch_size {params.batch_size} must be a "
+                                 f"multiple of the mesh size {mesh.size}")
+        else:
+            device = resolve_device("cuda" if device is None else device)
         if bucket_sites is None:
             bucket_sites = 0 if sort_batches > 1 else 64
         if bucket_sites and sort_batches > 1:
             raise ValueError("bucket_sites and sort_batches are mutually "
                              "exclusive candidate orderings")
-        device = resolve_device(device)
         params.fastsmc = True
         self.params = params
         self.data = data if data is not None else load_data(params)
         self.dq = dq if dq is not None else DecodingQuantities.load(
             params.decoding_quant_file)
         self.ctx = DecodeContext.build(params, self.data, self.dq)
-        self.decoder = GpuDecoder(self.ctx, device, decode_profile)
+        if mesh is None:
+            self.decoder = GpuDecoder(self.ctx, device, decode_profile)
+            self._devices = [device]
+            self._shards = 1
+        else:
+            self.decoder = ShardedDecoder(self.ctx, mesh, decode_profile)
+            self._devices = list(dict.fromkeys(mesh.devices))
+            self._shards = self.decoder.n_extract_shards
 
         K = self.dq.states
         self.state_threshold = seg.state_threshold(
@@ -180,10 +199,11 @@ class FastSMC:
         self.flush_group = flush_group or DEFAULT_FLUSH_GROUP
         self._group: List[dict] = []
         self._gpending: Optional[dict] = None
-        # decode memory guard of the JAX package (fastsmc.py:236-247),
+        # decode memory guard of the JAX package (fastsmc.py:232-247),
         # kept as it is: where it splits a batch decides the order of the
-        # records; a bf16 alpha (fast/turbo) takes twice the elements
-        self._pad_floor = 256
+        # records; a bf16 alpha (fast/turbo) takes twice the elements. The
+        # floor keeps 256 pairs a shard
+        self._pad_floor = 256 * self._shards
         self._post_budget = 8 << 20
         self._alpha_budget = (32 << 20) \
             if self.decoder.alpha_dtype.itemsize == 2 else (16 << 20)
@@ -442,17 +462,23 @@ class FastSMC:
         self._drain_group()
         self._gpending = pending
 
+    def _stage(self, x):
+        """Host array ``x`` on the decoder's device(s), with its pinned
+        source(s) (``kernels.stage``; per shard with a mesh)."""
+        if isinstance(self.decoder, ShardedDecoder):
+            return self.decoder.stage(x)
+        return stage(x, self._devices[0])
+
     def _queue_group(self, entries: List[dict]) -> dict:
         """Every entry's decode and capped extraction, the stacked packed
-        (and age) rows copied to pinned host buffers, and one event after
-        them; nothing here waits for the card. The pair and window arrays
-        go up through pinned tensors, which the entries keep until the
-        drain."""
-        dev = self.decoder.device
+        (and age) rows copied to pinned host buffers, and one event a device
+        after them; nothing here waits for a card. The pair and window
+        arrays go up through pinned tensors, which the entries keep until
+        the drain."""
         kcap = min(self._kept_cap, self._seg_cap)
         packs, ages = [], []
         for e in entries:
-            e["dev"] = [stage(e[k], dev) if e[k] is not None else (None, None)
+            e["dev"] = [(None, None) if e[k] is None else self._stage(e[k])
                         for k in ("hap1", "hap2", "w0", "w1")]
             packed, ages_rows, th = self._decode(e, self._seg_cap, kcap)
             # without ages a redo re-extracts from the threshold sums
@@ -462,10 +488,12 @@ class FastSMC:
         res = dict(entries=entries, caps=(self._seg_cap, kcap),
                    packed=_to_host(seg.stack_rows(packs)),
                    ages=_to_host(seg.stack_rows(ages))
-                   if self.need_ages else None, event=None)
-        if dev.type == "cuda":
-            res["event"] = torch.cuda.Event()
-            res["event"].record()
+                   if self.need_ages else None, events=[])
+        for dev in self._devices:
+            if dev.type == "cuda":
+                with on_device(dev):
+                    res["events"].append(torch.cuda.Event())
+                    res["events"][-1].record()
         return res
 
     def _decode(self, e: dict, cap: int, kcap: int):
@@ -477,19 +505,27 @@ class FastSMC:
             kcap=kcap)
 
     @staticmethod
-    def _unpack_entry(packed_i: np.ndarray):
-        """(start, b, score) of one entry's flat packed row, sliced to its
-        kept runs, and the kept and raw counts (fastsmc.py:625-639)."""
+    def _unpack_entry(packed_i: np.ndarray, e: dict):
+        """(start, b, score) of one entry's packed row, flat or per shard
+        ([S, 3*kcap+2], merged), sliced to its kept runs, and the kept and
+        raw counts of each row (fastsmc.py:625-639)."""
+        if packed_i.ndim == 2:
+            return seg.merge_packed_shards(packed_i, e["t_len"],
+                                           e["P"] // packed_i.shape[0])
         kcap = (len(packed_i) - 2) // 3
         start, b, score, nk, nr = seg.unpack_extract_rows(packed_i, kcap)
         k = min(nk, kcap)
-        return start[:k], b[:k], score[:k], nk, nr
+        return start[:k], b[:k], score[:k], [nk], [nr]
 
     @staticmethod
-    def _merge_entry_ages(ages_i: np.ndarray, n_kept: int) -> np.ndarray:
-        """[2, n_kept] age rows aligned with the kept runs (fastsmc.py:
-        641-651, flat row)."""
-        return ages_i[:, :min(n_kept, ages_i.shape[-1])]
+    def _merge_entry_ages(ages_i: np.ndarray, ns_kept) -> np.ndarray:
+        """[2, n_kept] age rows aligned with the kept runs, from a flat
+        [2, capp] or per-shard [S, 2, capp] row (fastsmc.py:641-651)."""
+        capp = ages_i.shape[-1]
+        if ages_i.ndim == 3:
+            return np.concatenate([a[:, :min(n, capp)]
+                                   for a, n in zip(ages_i, ns_kept)], axis=1)
+        return ages_i[:, :min(ns_kept[0], capp)]
 
     def _grow_caps(self, n_raw: int, n_kept: int):
         while self._seg_cap < n_raw:
@@ -513,8 +549,8 @@ class FastSMC:
         with self.timer.phase("segments"):
             t0 = time.perf_counter()
             wait0 = st["drain_wait_s"]
-            if res["event"] is not None:
-                res["event"].synchronize()
+            for event in res["events"]:
+                event.synchronize()
             st["drain_wait_s"] += time.perf_counter() - t0
             packed = res["packed"].numpy()
             ages = None if res["ages"] is None else res["ages"].numpy()
@@ -523,7 +559,9 @@ class FastSMC:
             raw_cap, kcap = res["caps"]
             out = []
             for i, e in enumerate(entries):
-                start, b, score, nk, nr = self._unpack_entry(packed[i])
+                start, b, score, ns_kept, ns_raw = self._unpack_entry(
+                    packed[i], e)
+                nk, nr = max(ns_kept), max(ns_raw)
                 if nr > raw_cap or nk > kcap \
                         or (ages is not None and nk > ages.shape[-1]):
                     st["overflow_redos"] += 1
@@ -533,7 +571,7 @@ class FastSMC:
                 out.append((seg.runs_from_packed(start, b, score,
                                                  e["t_len"]),
                             None if ages is None
-                            else self._merge_entry_ages(ages[i], nk)))
+                            else self._merge_entry_ages(ages[i], ns_kept)))
             st["drain_host_s"] += (time.perf_counter() - t0
                                    - (st["drain_wait_s"] - wait0))
         with self.timer.phase("outputPerPair"):
@@ -560,9 +598,10 @@ class FastSMC:
             if self.need_ages:
                 packed_d, ages_d, _ = self._decode(e, raw_cap, kcap)
             else:
-                w0, w1 = e["dev"][2][0], e["dev"][3][0]
-                th = e["th"] if w0 is None else seg.mask_window(e["th"],
-                                                                 w0, w1)
+                # one flat row from the whole batch's threshold sums, also
+                # with a mesh: the same runs in the same order
+                th = e["th"] if e["w0"] is None \
+                    else seg.mask_window(e["th"], e["w0"], e["w1"])
                 packed_d, _ = seg.extract_packed(
                     th, e["s0"], e["s1"], self.prob_threshold, raw_cap,
                     kcap=kcap)
@@ -573,13 +612,15 @@ class FastSMC:
             st["drain_wait_s"] += time.perf_counter() - t_w
             st["d2h_bytes"] += packed.nbytes + (0 if ages is None
                                                 else ages.nbytes)
-            start, b, score, nk, nr = self._unpack_entry(packed)
+            start, b, score, ns_kept, ns_raw = self._unpack_entry(packed, e)
+            nk, nr = max(ns_kept), max(ns_raw)
             if nr <= raw_cap and nk <= kcap \
                     and (ages is None or nk <= ages.shape[-1]):
                 break
             self._grow_caps(nr, nk)
         return (seg.runs_from_packed(start, b, score, e["t_len"]),
-                None if ages is None else self._merge_entry_ages(ages, nk))
+                None if ages is None
+                else self._merge_entry_ages(ages, ns_kept))
 
     def _emit_runs(self, e, pair, a, b, score_sum, ages=None):
         """Write one batch's kept runs (window-relative a/b); ``ages`` is
@@ -655,7 +696,8 @@ class FastSMC:
         (HMM.cpp:310-364), decoded over the whole chromosome in batches of
         ``batch_size`` through the same groups (fastsmc.py:1001-1042); the
         pairs come from the closed-form flat-index inversion, one batch at
-        a time."""
+        a time. With a mesh a short last batch is padded to a multiple of
+        its size with copies of its last pair, whose runs are dropped."""
         p = self.params
         L = self.data.sites
         start, end = job_pair_range(self.data.n_ind, p)
@@ -669,10 +711,13 @@ class FastSMC:
             self._batch_idx += 1
             h1, h2 = pairs_from_flat_indices(np.arange(ofs, ofs + n),
                                              p.within_only)
+            fill = -n % self._shards
+            h1, h2 = (np.concatenate([h.astype(np.int32),
+                                      np.full(fill, h[-1], np.int32)])
+                      for h in (h1, h2))
             self._queue_entry(dict(
-                hap1=h1.astype(np.int32), hap2=h2.astype(np.int32), n=n,
-                frm=0, t_len=bucket_len(L), s0=0, s1=L, w0=None, w1=None,
-                P=n))
+                hap1=h1, hap2=h2, n=n, frm=0, t_len=bucket_len(L), s0=0,
+                s1=L, w0=None, w1=None, P=n + fill))
 
     # ------------------------------------------------------------------
     def run(self, verbose: bool = True, resume: bool = False) -> str:

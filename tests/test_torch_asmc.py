@@ -316,17 +316,6 @@ def test_batch_shrinks_to_the_memory_budget(panel, tmp_path):
     assert a.batch_size == 8192
 
 
-@pytest.mark.parametrize("kw", [dict(mesh="a device mesh")], ids=str)
-def test_asmc_off_path_options_raise(panel, tmp_path, kw):
-    kw = dict(kw)
-    params = _params(panel, tmp_path / "o")
-    for k, v in kw.pop("params", {}).items():
-        setattr(params, k, v)
-    params.finalize()
-    with pytest.raises(NotImplementedError):
-        asmc.ASMC(params, data=panel[2], device="cpu", **kw)
-
-
 def _records(path):
     with gzip.open(path, "rt") as fh:
         return [line.split("\t") for line in fh.read().splitlines()]

@@ -515,3 +515,45 @@ def test_packed_rows_match_the_cpu_plain_path(gpu, ctx):
     assert (np.abs(gscore - wscore) <= ATOL * length).all()
     np.testing.assert_allclose(gages[0], wages[0], rtol=1e-4)
     assert (gages[1] == wages[1]).mean() >= 0.99
+
+
+def test_mesh_on_one_card_matches_meshless(gpu, ctx):
+    """A mesh of two shards on cuda:0 gives the meshless decoder's per-pair
+    outputs and extraction bit for bit, its sums within relative 1e-6,
+    and leaves torch's current device where it was."""
+    from fastsmc_tpu_torch.engine import segments as seg
+    from fastsmc_tpu_torch.parallel import ShardedDecoder, make_mesh
+
+    current = torch.cuda.current_device()
+    sd = ShardedDecoder(ctx, make_mesh(devices=["cuda:0"] * 2))
+    rng = np.random.default_rng(5)
+    ha, hb = rng.integers(0, 1024, 64), rng.integers(0, 1024, 64)
+    outs = kernels.BwdOutputs(**{n: True for n in kernels.KERNEL_OUTPUTS})
+    before = dict(kernels.LAUNCHES)
+    got = sd.decode_pairs(ha, hb, 64, 128, outs, 11)
+    want = gpu.decode_pairs(ha, hb, 64, 128, outs, 11)
+    torch.cuda.synchronize()
+    assert torch.cuda.current_device() == current
+    assert kernels.LAUNCHES["hmm_forward"] == before.get("hmm_forward", 0) + 3
+    for name in ("posterior", "per_pair_mean", "per_pair_map",
+                 "threshold_sums"):
+        assert torch.equal(got[name], want[name]), name
+    for name in ("posterior_sums", "major_minor_sums"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-6, atol=0)
+    arrays = _packed_inputs()
+    packed, ages, th = _packed_call(sd, arrays)
+    f_packed, f_ages, f_th = _packed_call(gpu, arrays)
+    assert torch.cuda.current_device() == current
+    assert torch.equal(th, f_th)
+    start, b, score, ns_kept, _ = seg.merge_packed_shards(
+        packed.cpu().numpy(), 512, len(arrays[0]) // 2)
+    f_start, f_b, f_score, nk, _ = seg.unpack_extract_rows(
+        f_packed.cpu().numpy(), 4096)
+    assert sum(ns_kept) == nk > 0
+    np.testing.assert_array_equal(start, f_start[:nk])
+    np.testing.assert_array_equal(b, f_b[:nk])
+    np.testing.assert_array_equal(score, f_score[:nk])
+    np.testing.assert_array_equal(
+        np.concatenate([a[:, :n] for a, n in zip(ages.cpu().numpy(),
+                                                 ns_kept)], axis=1),
+        f_ages.cpu().numpy()[:, :nk])

@@ -98,7 +98,7 @@ def test_example_array_matches_golden(repo_root, tmp_path):
     _assert_same_records(got, want)
 
 
-OFF_PATH = [dict(hashing_backend="device"), dict(mesh="a device mesh")]
+OFF_PATH = [dict(hashing_backend="device")]
 
 
 @pytest.mark.parametrize("kw", OFF_PATH, ids=lambda kw: str(kw))
