@@ -100,6 +100,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      (jobs=4) on cuda:0; the merged output must cover the pair set (first
      6 columns) of phase 4's run, and each process must launch the decode
      kernels (their launches count with the legs').
+ 19. (after 18) the surfaces (fastsmc_tpu_torch.cli, compat, prepare/):
+     19a `prepare` with the CEU demography and 69-state discretisation
+     written out of the artifact, the example panel's frequencies, n=30:
+     69 states, finite tables, the artifact loads back; 19b `asmc` on an
+     ASMC-format copy of the example panel (jobs=100, job 7, both sums):
+     the four sums files equal the ASMC API's byte for byte (decompressed);
+     jobs 1-4 of 4 with major/minor sums, then `merge`: the merged matrices
+     within relative 1e-6 of the jobs' added in float64; `asmc` with 19a's
+     model: each row adds up to the job's pair count within relative 1e-3;
+     19c `fastsmc` at the CLI's defaults against the JAX CLI's records
+     (tests/fixtures/example_array.cli.FastSMC.ibd.gz) as in phase 4, and
+     with --bin through `convert-binary`: the same keys in the same order;
+     19d compat.HMM's calls on the card against the same calls on the CPU
+     (the plain versions), within KERNEL_ATOL: makePairObs and decode on
+     [1000, 1128), [6700, 6759) and the whole chromosome (P=1),
+     decodeSummarize, the posterior of decodePairs' 5 buffered pairs on
+     [1000, 1128) and their sums, decodeHapPairs with one pair; then
+     compat.FastSMC(..., device="cuda") must write phase 4's bytes.
 Each leg clears the launch counts before it runs and fails unless every
 kernel of its path was launched. The line before the last lists the
 kernels as JSON, each with its time, its plain version's, its bound on the
@@ -171,6 +189,8 @@ SEQ_ASMC_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                                "example_array.seq_asmc_job7of100.npz")
 SEQ_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                           "example_array.seq.FastSMC.ibd.gz")
+CLI_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                          "example_array.cli.FastSMC.ibd.gz")
 # kernel vs plain version on the card: f32 sums taken in another order in
 # a K=69 product that is renormalised at every site; sums over P pairs
 # get 1e-5 per pair, posterior means (in generations) 1e-5 times the
@@ -2036,6 +2056,266 @@ def multihost_phase(want_path: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 19. the surfaces: cli, compat, prepare
+# ---------------------------------------------------------------------------
+
+def read_sums(path: str) -> np.ndarray:
+    return np.loadtxt(path, dtype=np.float64)
+
+
+def surfaces_phase(kernels, DecodingParams, ASMC, golden_sha: str) -> dict:
+    """Phase 19: the port's user-facing surfaces on the card, each sub-leg
+    with the launch counts cleared and failing unless its kernels launched;
+    returns the launches of the card's calls."""
+    from fastsmc_tpu_torch import cli
+    out = os.path.join(OUT, "surfaces")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    launches: dict = {}
+
+    def leg(name, need, fn):
+        res, n = run_leg(kernels, f"surfaces: {name}", need, fn)
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        return res, n
+
+    model = surfaces_prepare(cli, out)
+    panel = surfaces_asmc(cli, DecodingParams, ASMC, out, model, leg)
+    surfaces_fastsmc(cli, out, leg)
+    surfaces_compat(DecodingParams, panel, out, golden_sha, leg)
+    log(f"[surfaces] phase 19 in {time.perf_counter() - t0:.1f} s, "
+        f"launches {launches}")
+    return launches
+
+
+def surfaces_prepare(cli, out: str) -> str:
+    """19a: ``prepare`` with the CEU demography and the 69-state
+    discretisation written out of the artifact, the example panel's allele
+    frequencies and n = 30; 69 states, finite tables, and the artifact loads
+    back through DecodingQuantities.load. Returns its path."""
+    from fastsmc_tpu_torch.io.decoding_quantities import DecodingQuantities
+    from fastsmc_tpu_torch.io.inputs import write_model_files
+    demo, disc = write_model_files(DecodingQuantities.load(DQ),
+                                   os.path.join(out, "CEU"))
+    root = os.path.join(out, "model")
+    t0 = time.perf_counter()
+    cli.main(["prepare", "-D", demo, "-d", disc, "-f", EXAMPLE, "-n", "30",
+              "-o", root])
+    wall = time.perf_counter() - t0
+    path = root + ".decodingQuantities.npz"
+    dq = DecodingQuantities.load(path)
+    tables = ("D", "B", "U", "RR", "initial_state_prob", "expected_times",
+              "classic_emission", "compressed_emission", "csfs",
+              "folded_ascertained_csfs", "homozygous_emissions")
+    finite = all(np.isfinite(getattr(dq, t)).all() for t in tables)
+    log(f"[surfaces] 19a prepare: {dq.states} states, CSFS of "
+        f"{dq.csfs_samples} samples, {len(dq.gen_dists)} genetic distances, "
+        f"finite tables {finite}, host wall {wall:.1f} s")
+    if dq.states != 69 or dq.csfs_samples != 30 or not finite:
+        raise AssertionError("surfaces: prepare gave a wrong model")
+    return path
+
+
+def surfaces_asmc(cli, DecodingParams, ASMC, out: str, model: str, leg):
+    """19b: ``asmc`` on an ASMC-format copy of the example panel against
+    the ASMC API on the same files (decompressed bytes of the four sums
+    files), four jobs merged by ``merge`` against their sums added in
+    float64, and a run with 19a's model whose rows add up to its pair
+    count. Returns the copy's root."""
+    from fastsmc_tpu_torch.io.haps import load_data
+    from fastsmc_tpu_torch.io.inputs import write_asmc_panel
+    from fastsmc_tpu_torch.pipelines.asmc import job_pair_range
+    panel = write_asmc_panel(EXAMPLE, os.path.join(out, "asmc_panel",
+                                                   "example"))
+    need = (*DECODE_KERNELS, "hmm_block_reduce")
+
+    def asmc(root, *extra, dq=DQ):
+        cli.main(["asmc", "--device", DEVICE, "--inFileRoot", panel,
+                  "--decodingQuantFile", dq, "--outFileRoot", root,
+                  "--useKnownSeed", *extra])
+
+    job7 = ("--jobs", "100", "--jobInd", "7")
+    sums = ("--posteriorSums", "--majorMinorPosteriorSums")
+    t0 = time.perf_counter()
+    cli_root, api_root = (os.path.join(out, t) for t in ("asmc_cli",
+                                                          "asmc_api"))
+    _, n = leg("asmc CLI", need, lambda: asmc(cli_root, *job7, *sums))
+    params = DecodingParams.asmc(
+        panel, DQ, api_root, jobs=100, job_ind=7, do_posterior_sums=True,
+        do_major_minor_posterior_sums=True, use_known_seed=True)
+
+    def api():
+        a = ASMC(params, device=DEVICE)
+        a.write_outputs(a.decode_all_in_job(verbose=False))
+
+    leg("asmc API", need, api)
+    tags = ("", ".00", ".01", ".11")
+    same = all(decompressed_sha256(f"{cli_root}{t}.sumOverPairs.gz")
+               == decompressed_sha256(f"{api_root}{t}.sumOverPairs.gz")
+               for t in tags)
+    start, end = job_pair_range(load_data(params).n_ind, params)
+    pairs = end - start
+    log(f"[surfaces] 19b asmc CLI, jobs=100 job 7 ({pairs} pairs): the four "
+        f"sums files equal to the API's byte for byte (decompressed): "
+        f"{same}, launches {n}")
+    if not same:
+        raise AssertionError("surfaces: the asmc CLI's sums differ from the "
+                             "API's")
+
+    jobs_root = os.path.join(out, "jobs")
+    merged = os.path.join(out, "jobs_merged")
+    _, n = leg("asmc CLI, 4 jobs", need, lambda: [
+        asmc(f"{jobs_root}.{j}-4", "--jobs", "4", "--jobInd", str(j),
+             "--majorMinorPosteriorSums", "--batchSize", "2048")
+        for j in range(1, 5)])
+    cli.main(["merge", "--fileRoot", jobs_root, "--jobs", "4",
+              "--out", merged])
+    rel = 0.0
+    total = 0.0
+    for tag in tags[1:]:
+        want = sum(read_sums(f"{jobs_root}.{j}-4{tag}.sumOverPairs.gz")
+                   for j in range(1, 5))
+        total = total + want
+        got = read_sums(f"{merged}.merged{tag}.sumOverPairs.gz")
+        rel = max(rel, float((np.abs(got - want)
+                              / np.maximum(np.abs(want), 1e-30)).max()))
+    got = read_sums(f"{merged}.merged.sumOverPairs.gz")
+    rel = max(rel, float((np.abs(got - total)
+                          / np.maximum(np.abs(total), 1e-30)).max()))
+    log(f"[surfaces] 19b 4 jobs + merge: merged matrices vs the jobs' "
+        f"added in float64, max relative difference {rel:.3g} (gate 1e-6), "
+        f"launches {n}")
+    if rel > 1e-6:
+        raise AssertionError(f"surfaces: merge off by relative {rel}")
+
+    root = os.path.join(out, "asmc_model")
+    _, n = leg("asmc CLI on the prepared model", need,
+               lambda: asmc(root, *job7, "--posteriorSums", dq=model))
+    rows = read_sums(root + ".sumOverPairs.gz").sum(axis=1)
+    row_rel = float(np.abs(rows / pairs - 1.0).max())
+    log(f"[surfaces] 19b asmc with 19a's model: rows add up to the "
+        f"{pairs} pairs within relative {row_rel:.3g} (gate 1e-3), launches "
+        f"{n}; 19b in {time.perf_counter() - t0:.1f} s")
+    if row_rel > 1e-3:
+        raise AssertionError(f"surfaces: prepared model's sums off: "
+                             f"{row_rel}")
+    return panel
+
+
+def surfaces_fastsmc(cli, out: str, leg) -> None:
+    """19c: ``fastsmc`` at the CLI's defaults against the JAX package's
+    CLI records (tests/fixtures/example_array.cli.FastSMC.ibd.gz); the
+    same run with ``--bin`` through ``convert-binary``: the same records."""
+    import contextlib
+    import io
+    t0 = time.perf_counter()
+    paths = []
+    for tag, extra in (("text", ()), ("bin", ("--bin",))):
+        root = os.path.join(out, f"fastsmc_{tag}")
+        leg(f"fastsmc CLI ({tag})", DECODE_KERNELS, lambda: cli.main(
+            ["fastsmc", "--device", DEVICE, "--useKnownSeed",
+             "--inFileRoot", EXAMPLE, "--decodingQuantFile", DQ,
+             "--outFileRoot", root, *extra]))
+        paths.append(f"{root}.1.1.FastSMC.{'bibd' if extra else 'ibd'}.gz")
+    got = read_records(paths[0])
+    rel = compare_records(got, read_records(CLI_GOLDEN), "fastsmc CLI")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["convert-binary", paths[1]])
+    conv = [line.split("\t") for line in buf.getvalue().splitlines()]
+    same = [r[:9] for r in conv] == [r[:9] for r in got]
+    log(f"[surfaces] 19c fastsmc CLI: {len(got)} records, keys equal in "
+        f"order to the JAX CLI's, float max rel {rel:.3g}; --bin through "
+        f"convert-binary: {len(conv)} records, the same keys in the same "
+        f"order: {same}; {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("surfaces: convert-binary records differ from "
+                             "the text run's")
+
+
+def surfaces_compat(DecodingParams, panel: str, out: str, golden_sha: str,
+                    leg) -> None:
+    """19d: compat.HMM's calls with device="cuda" against the same calls
+    with device="cpu" (the plain versions), each within KERNEL_ATOL (sums
+    over P pairs: per pair; posterior means: per largest expected time; MAP
+    states equal but for ties): makePairObs and decode on three windows
+    (P = 1), decodeSummarize, the posterior of decodePairs' 5 buffered
+    pairs on [1000, 1128) and their sums after finishDecoding, and
+    decodeHapPairs with one pair; then compat.FastSMC(..., device="cuda")
+    must write phase 4's bytes."""
+    from fastsmc_tpu_torch import compat
+    t0 = time.perf_counter()
+    p = compat.DecodingParams(panel, DQ, os.path.join(out, "hmm"),
+                              doPosteriorSums=True)
+    data = compat.Data(p)
+    windows = ((1000, 1128), (6700, 6759), (0, None))
+
+    def calls(dev):
+        h = compat.HMM(data, p, device=dev)
+        obs = h.makePairObs(1, 0, 2, 3)
+        r = {"obsBits": obs.obsBits, "homMinorBits": obs.homMinorBits}
+        for a, b in windows:
+            r[f"decode [{a}, {b}) P=1"] = h.decode(obs, a, b)
+        r["decodeSummarize"] = h.decodeSummarize(h.makePairObs(2, 5, 1, 9))
+        h = compat.HMM(data, p, device=dev)
+        h.decodePairs([0, 2], [1, 2])
+        r["posterior [1000, 1128) P=5"] = h._decode_window(
+            h.getBatchBuffer(), 1000, 1128)["posterior"]
+        h.finishDecoding()
+        r["decodePairs sums P=5"] = h.getDecodingReturnValues().sumOverPairs
+        h = compat.HMM(data, p, device=dev)
+        h.decodeHapPairs([4], [13])
+        h.finishDecoding()
+        r["decodeHapPairs sums P=1"] = \
+            h.getDecodingReturnValues().sumOverPairs
+        return r, h
+
+    need = (*DECODE_KERNELS, "hmm_block_reduce")
+    (got, h), n = leg("compat.HMM", need, lambda: calls(DEVICE))
+    want, h_cpu = calls("cpu")
+    times = np.asarray(h.getDecodingQuantities().expectedTimes)
+    errs = {}
+    for k in ("obsBits", "homMinorBits"):
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"surfaces: compat {k} differ")
+    for k, v in got.items():
+        if k.startswith(("decode [", "posterior")):
+            errs[k] = float(np.abs(v - want[k]).max())
+        elif k.endswith("sums P=5"):
+            errs[k] = float(np.abs(v - want[k]).max()) / 5
+        elif k.endswith("sums P=1"):
+            errs[k] = float(np.abs(v - want[k]).max())
+    (gmap, gmean), (wmap, wmean) = got["decodeSummarize"], \
+        want["decodeSummarize"]
+    errs["decodeSummarize mean"] = float(np.abs(gmean - wmean).max()
+                                         / times.max())
+    post = h_cpu.decode(h_cpu.makePairObs(2, 5, 1, 9))
+    flips = np.flatnonzero(gmap != wmap)
+    gap = np.abs(post[np.searchsorted(times, wmap[flips]), flips]
+                 - post[np.searchsorted(times, gmap[flips]), flips])
+    log(f"[surfaces] 19d compat.HMM on the card vs the CPU (plain "
+        f"versions): {json.dumps(errs)}, decodeSummarize MAP states "
+        f"differing at {flips.size} sites (largest posterior gap "
+        f"{float(gap.max()) if flips.size else 0.0:.3g}), launches {n}")
+    if max(errs.values()) > KERNEL_ATOL or (flips.size
+                                            and gap.max() > KERNEL_ATOL):
+        raise AssertionError(f"surfaces: compat.HMM off: {errs}")
+
+    params = DecodingParams.fastsmc_defaults(
+        EXAMPLE, DQ, os.path.join(out, "compat_fastsmc"),
+        use_known_seed=True)
+    _, n = leg("compat.FastSMC", DECODE_KERNELS,
+               lambda: compat.FastSMC(params, device=DEVICE).run())
+    same = decompressed_sha256(params.ibd_output_path()) == golden_sha
+    log(f"[surfaces] 19d compat.FastSMC(device={DEVICE!r}): phase 4's "
+        f"bytes: {same}, launches {n}; 19d in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("surfaces: compat.FastSMC wrote other bytes "
+                             "than phase 4")
+
+
 def build_log(info, KP: int, K: int) -> None:
     """ptxas' registers and spills of the instantiations this model runs."""
     tag, fn = f"_kernelILi{KP // 8}E", None
@@ -2248,6 +2528,10 @@ def main() -> int:
     add(mesh_phase(FastSMC, ASMC, DecodingParams, kernels, scale_data,
                    example, mesh_ref), "mesh")
     add(multihost_phase(golden_path), "multihost")
+    # 19. the surfaces: prepare, the asmc/merge/fastsmc/convert-binary CLI
+    # and compat
+    add(surfaces_phase(kernels, DecodingParams, ASMC,
+                       mesh_ref["golden_sha256"]), "surfaces")
 
     # the port imports nothing of JAX or of the JAX package; an A/B parent
     # from before the port owned its host modules imports fastsmc_tpu, so

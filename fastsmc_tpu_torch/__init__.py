@@ -9,7 +9,10 @@ and owns everything that touches the device: decode tables, the forward,
 backward+combine and block reduction kernels, run extraction, the FastSMC
 and ASMC pipelines, their mesh over local devices and job tiles across
 processes (``parallel/``), and the alpha-wall probe
-(``probes/alpha_wall.py``).
+(``probes/alpha_wall.py``). Over them sit the user-facing surfaces: the
+command line (``cli.py``), the reference module's camelCase API
+(``compat.py``), the model builder (``prepare/``, ``preparedecoding.py``)
+and a walkthrough (``walkthrough.py``).
 
 Entry points::
 
@@ -17,6 +20,8 @@ Entry points::
     FastSMC(params, device="cuda").run()
     a = ASMC(params, device="cuda")
     a.write_outputs(a.decode_all_in_job())
+
+    python -m fastsmc_tpu_torch.cli fastsmc|asmc|convert-binary|merge|prepare
 """
 
 from .config import DecodingParams

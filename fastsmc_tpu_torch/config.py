@@ -2,13 +2,16 @@
 
 The port's copy of ``fastsmc_tpu/config.py``: the same ``DecodingParams``
 dataclass, defaults and validation (reference DecodingParams.{hpp,cpp}),
-with the two constructor profiles the port's entry points take:
+with its three constructor profiles:
 
-  * ``DecodingParams.asmc(...)``             -- the ASMC CLI defaults
+  * ``DecodingParams.asmc(...)``                 -- the ASMC CLI defaults
     (reference DecodingParams.cpp:75-162)
-  * ``DecodingParams.fastsmc_defaults(...)`` -- the FastSMC library ctor
+  * ``DecodingParams.fastsmc_defaults(...)``     -- the FastSMC library ctor
     (reference DecodingParams.cpp:56-73: min_m=1.5, time=50, batchSize=32,
     noConditionalAgeEstimates=True, perPair outputs on)
+  * ``DecodingParams.fastsmc_cli_defaults(...)`` -- the FastSMC CLI
+    (reference DecodingParams.cpp:164-276: min_m=1.0, time=100,
+    batchSize=32)
 
 Validation mirrors ``validateParamsFastSMC`` (reference
 DecodingParams.cpp:278-464), including the triangular jobs-count check and
@@ -122,12 +125,7 @@ class DecodingParams:
                 out_file_root=out_file_root,
                 jobs=kw.pop("jobs", 1), job_ind=kw.pop("job_ind", 1),
                 using_csfs=True)
-        for k, v in kw.items():
-            if not hasattr(p, k):
-                raise ConfigError(f"Unknown parameter {k!r}")
-            setattr(p, k, v)
-        p.finalize()
-        return p
+        return p._set(kw)
 
     @classmethod
     def fastsmc_defaults(cls, in_file_root: str, decoding_quant_file: str = "",
@@ -141,12 +139,33 @@ class DecodingParams:
                 bin_out=False, output_ibd_segment_length=True,
                 no_conditional_age_estimates=True,
                 do_per_pair_posterior_mean=True, do_per_pair_map=True)
+        return p._set(kw)
+
+    @classmethod
+    def fastsmc_cli_defaults(cls, in_file_root: str, out_file_root: str,
+                             decoding_quant_file: str = "", **kw
+                             ) -> "DecodingParams":
+        """FastSMC CLI profile (reference DecodingParams.cpp:164-276:
+        min_m=1.0, time=100, batchSize=32, conditional age estimates on)."""
+        p = cls(in_file_root=in_file_root,
+                decoding_quant_file=decoding_quant_file,
+                out_file_root=out_file_root,
+                fastsmc=True, hashing=True,
+                batch_size=32, recall_threshold=3, min_m=1.0, time=100,
+                bin_out=False, output_ibd_segment_length=True,
+                no_conditional_age_estimates=False,
+                do_per_pair_posterior_mean=True, do_per_pair_map=True,
+                skip_csfs_distance=float("nan"))
+        return p._set(kw)
+
+    def _set(self, kw: dict) -> "DecodingParams":
+        """Set the fields named in ``kw`` (an unknown name raises
+        ``ConfigError``), then :meth:`finalize`."""
         for k, v in kw.items():
-            if not hasattr(p, k):
+            if not hasattr(self, k):
                 raise ConfigError(f"Unknown parameter {k!r}")
-            setattr(p, k, v)
-        p.finalize()
-        return p
+            setattr(self, k, v)
+        return self.finalize()
 
     # ------------------------------------------------------------------------
     def finalize(self) -> "DecodingParams":

@@ -9,7 +9,7 @@ provides:
   * :class:`DecodingQuantities` — dense float32 arrays
     (D/B/U/RR stacked ``[n_dists, states]``, emission tables, CSFS tables)
   * a parser for the reference gzipped-text format (DecodingQuantities.cpp:60-347)
-  * a reader of the JAX package's ``.npz`` artifacts
+  * ``.npz`` serialisation, the JAX package's artifact format
   * float32 ``round_morgans`` / ``round_physical`` quantisation
     (HmmUtils.cpp:65-94) and index lookup replacing the float-keyed maps
 """
@@ -132,6 +132,29 @@ class DecodingQuantities:
             gen_dists=z["gen_dists"], D=z["D"], B=z["B"], U=z["U"], RR=z["RR"],
             phys_dists=z["phys_dists"],
             homozygous_emissions=z["homozygous_emissions"],
+        )
+
+    def save_npz(self, path: str) -> None:
+        """Write the ``.npz`` artifact :meth:`load_npz` reads back field for
+        field (a ``size_vector`` of None is stored empty)."""
+        np.savez_compressed(
+            path,
+            states=self.states, csfs_samples=self.csfs_samples,
+            time_vector=self.time_vector,
+            size_vector=(self.size_vector if self.size_vector is not None
+                         else np.zeros(0)),
+            discretization=self.discretization,
+            expected_times=self.expected_times,
+            initial_state_prob=self.initial_state_prob,
+            column_ratios=self.column_ratios,
+            classic_emission=self.classic_emission,
+            compressed_emission=self.compressed_emission,
+            csfs=self.csfs, folded_csfs=self.folded_csfs,
+            ascertained_csfs=self.ascertained_csfs,
+            folded_ascertained_csfs=self.folded_ascertained_csfs,
+            gen_dists=self.gen_dists, D=self.D, B=self.B, U=self.U,
+            RR=self.RR, phys_dists=self.phys_dists,
+            homozygous_emissions=self.homozygous_emissions,
         )
 
     # ------------------------------------------------------------------

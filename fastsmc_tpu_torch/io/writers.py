@@ -1,7 +1,7 @@
-"""Output codecs: IBD text/binary writers and posterior-sum writers.
+"""Output codecs: IBD text/binary writers, posterior-sum writers, binary reader.
 
-The port's copy of ``fastsmc_tpu/io/writers.py``, with the writers the
-port's pipelines use. Byte-compatible with the reference formats:
+The port's copy of ``fastsmc_tpu/io/writers.py``. Byte-compatible with the
+reference formats:
   * text ``.ibd.gz`` records (HMM.cpp:1110-1144), float columns printed with
     ``setprecision(digits10+1 == 7)`` default-float formatting (== ``%.7g``)
   * binary ``.bibd.gz``: header (3 option bools, chr, id table --
@@ -9,6 +9,8 @@ port's pipelines use. Byte-compatible with the reference formats:
   * ``.sumOverPairs.gz`` matrices in Eigen tab format (main.cpp:119-167)
     including the major/minor fold-flip
   * ``.perPairPosteriorMeans.gz`` / ``.perPairMAP.gz`` row streams
+  * reader of ``.bibd.gz`` mirroring BinaryDataReader.hpp:64-185 (the
+    ``convert-binary`` CLI)
 
 One fault of the JAX package's text writer is repaired here: when the
 native formatter returns ``None`` (its C side refuses a truncated buffer)
@@ -20,6 +22,7 @@ and raises the error from ``close()`` instead of hanging.
 
 from __future__ import annotations
 
+import dataclasses
 import gzip
 import queue
 import struct
@@ -30,6 +33,11 @@ from typing import List
 import numpy as np
 
 from .. import native
+
+
+def fmt_float(x) -> str:
+    """C++ ostream default-float with precision 7 (== printf %.7g)."""
+    return "%.7g" % float(x)
 
 
 class IbdTextWriter:
@@ -250,6 +258,107 @@ class IbdBinaryWriter:
         self.n_written += n
 
     def close(self):
+        self._f.close()
+
+
+def _alias(field: str) -> property:
+    """A read/write property under another name for dataclass ``field``."""
+    return property(lambda self: getattr(self, field),
+                    lambda self, value: setattr(self, field, value))
+
+
+@dataclasses.dataclass
+class IbdPairDataLine:
+    """Mirror of BinaryDataReader.hpp:18-61, with the reference module's
+    camelCase spellings of its fields and ``toString`` (pybind.cpp:181-195;
+    "chromosome" already matches)."""
+    ind1_fam_id: str
+    ind1_id: str
+    ind1_hap: int
+    ind2_fam_id: str
+    ind2_id: str
+    ind2_hap: int
+    chromosome: int
+    ibd_start: int
+    ibd_end: int
+    length_cm: float = -1.0
+    score: float = -1.0
+    post_est: float = -1.0
+    map_est: float = -1.0
+
+    def to_string(self) -> str:
+        parts = [self.ind1_fam_id, self.ind1_id, str(self.ind1_hap),
+                 self.ind2_fam_id, self.ind2_id, str(self.ind2_hap),
+                 str(self.chromosome), str(self.ibd_start), str(self.ibd_end)]
+        if self.length_cm != -1.0:
+            parts.append(fmt_float(self.length_cm))
+        parts.append(fmt_float(self.score))
+        if self.post_est != -1.0:
+            parts.append(fmt_float(self.post_est))
+        if self.map_est != -1.0:
+            parts.append(fmt_float(self.map_est))
+        return "\t".join(parts)
+
+    toString = to_string
+    ind1FamId = _alias("ind1_fam_id")
+    ind1Id = _alias("ind1_id")
+    ind1Hap = _alias("ind1_hap")
+    ind2FamId = _alias("ind2_fam_id")
+    ind2Id = _alias("ind2_id")
+    ind2Hap = _alias("ind2_hap")
+    ibdStart = _alias("ibd_start")
+    ibdEnd = _alias("ibd_end")
+    lengthInCentimorgans = _alias("length_cm")
+    ibdScore = _alias("score")
+    postEst = _alias("post_est")
+    mapEst = _alias("map_est")
+
+
+class BinaryDataReader:
+    """Reader for ``.bibd.gz`` (BinaryDataReader.hpp:64-185): the header on
+    construction, then one :class:`IbdPairDataLine` per record."""
+
+    def __init__(self, path: str):
+        self._f = gzip.open(path, "rb")
+        hdr = self._f.read(3 + 4)
+        self.has_length, self.has_post, self.has_map = (
+            bool(hdr[0]), bool(hdr[1]), bool(hdr[2]))
+        self.chr_number = struct.unpack("<i", hdr[3:7])[0]
+        (n_ids,) = struct.unpack("<I", self._f.read(4))
+        self.fam_ids = []
+        self.iids = []
+        for _ in range(n_ids):
+            (lf,) = struct.unpack("<I", self._f.read(4))
+            self.fam_ids.append(self._f.read(lf).decode())
+            (li,) = struct.unpack("<I", self._f.read(4))
+            self.iids.append(self._f.read(li).decode())
+
+    def __iter__(self):
+        while True:
+            head = self._f.read(4)
+            if len(head) < 4:
+                return
+            (ind1,) = struct.unpack("<I", head)
+            hap1, = struct.unpack("<B", self._f.read(1))
+            ind2, = struct.unpack("<I", self._f.read(4))
+            hap2, = struct.unpack("<B", self._f.read(1))
+            start, end = struct.unpack("<ii", self._f.read(8))
+            line = IbdPairDataLine(
+                ind1_fam_id=self.fam_ids[ind1], ind1_id=self.iids[ind1],
+                ind1_hap=hap1,
+                ind2_fam_id=self.fam_ids[ind2], ind2_id=self.iids[ind2],
+                ind2_hap=hap2,
+                chromosome=self.chr_number, ibd_start=start, ibd_end=end)
+            if self.has_length:
+                (line.length_cm,) = struct.unpack("<f", self._f.read(4))
+            (line.score,) = struct.unpack("<f", self._f.read(4))
+            if self.has_post:
+                (line.post_est,) = struct.unpack("<f", self._f.read(4))
+            if self.has_map:
+                (line.map_est,) = struct.unpack("<f", self._f.read(4))
+            yield line
+
+    def close(self) -> None:
         self._f.close()
 
 

@@ -557,3 +557,41 @@ def test_mesh_on_one_card_matches_meshless(gpu, ctx):
         np.concatenate([a[:, :n] for a, n in zip(ages.cpu().numpy(),
                                                  ns_kept)], axis=1),
         f_ages.cpu().numpy()[:, :nk])
+
+
+@pytest.mark.parametrize("P", [1, 5])
+def test_compat_hmm_matches_plain_on_a_window(cuda, P, tmp_path):
+    """compat.HMM on the ASMC-format copy of the example panel (the inputs
+    of chip_smoke.py's phase 19d), the window [1000, 1128) (mid-panel),
+    P pairs: the kernels' posterior within ATOL of the plain version's, and
+    with P = 5 the buffered batch's sums over the whole chromosome (the
+    backward kernel's posterior_sums and the block reduction) within
+    ATOL * P."""
+    from fastsmc_tpu_torch import compat
+    from fastsmc_tpu_torch.io.inputs import write_asmc_panel
+    root = write_asmc_panel(
+        os.path.join(os.path.dirname(DQ), "panels", "example_array",
+                     "example"), str(tmp_path / "asmc" / "example"))
+    params = compat.DecodingParams(root, DQ, str(tmp_path / "hmm"),
+                                   doPosteriorSums=True)
+    data = compat.Data(params)
+    sides = []
+    for dev in ("cuda", "cpu"):
+        hmm = compat.HMM(data, params, device=dev)
+        if P == 1:
+            hmm.decodeHapPairs([0], [7])
+        else:
+            hmm.decodePairs([0, 2], [1, 2])
+        batch = hmm.getBatchBuffer()
+        assert len(batch) == P
+        before = dict(kernels.LAUNCHES)
+        post = hmm._decode_window(batch, 1000, 1128)["posterior"]
+        if dev == "cuda":
+            assert kernels.LAUNCHES["hmm_forward"] == \
+                before.get("hmm_forward", 0) + 1
+        hmm.finishDecoding()
+        sides.append((post, hmm.getDecodingReturnValues().sumOverPairs))
+    (post, sums), (want_post, want_sums) = sides
+    assert post.shape == want_post.shape == (128, 69, P)
+    np.testing.assert_allclose(post, want_post, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(sums, want_sums, rtol=0, atol=ATOL * P)
