@@ -149,13 +149,16 @@ through its own checkout's wrappers on the same inputs: every forward
 branch (array and sequence mode, exact and fast) at T=1024 and at the ASMC
 shape (T=8192, P=8192 and 3137), fast array also at FAST_CAP_PAIRS, alpha
 within KERNEL_ATOL (exact) or APPROX_ATOL (fast) of the parent's, and bit
-for bit on the bf16 array branch, which keeps its FFMA kernel; the backward
+for bit on the bf16 array branch, which holds the parent's bits; the backward
 at the ASMC shape on one alpha fed to both sides as the control, every
 output equal to the parent's bit for bit (the sums as their per-group
-partials); times in turns three times each; both builds' ptxas lines and
-SASS counts; then each forward branch against its plain version beside
-the plain version with f64 sums against it. --ab-only stops after the A/B
-and the batch-invariance check.
+partials); times in turns three times each, and the bf16 array rows'
+FP32-issue floor; both builds' ptxas lines and SASS counts (the FFMA
+kernels' densest loops as FFMA per shared load); then each forward branch
+against its plain version beside the plain version with f64 sums against
+it; then the fast ASMC scale leg (in turns) and the fast FastSMC scale leg
+through each checkout's package, every output equal to the parent's byte
+for byte. --ab-only stops after that and the batch-invariance check.
 """
 
 from __future__ import annotations
@@ -1009,6 +1012,18 @@ def ab_forward_cases():
     return cases + [("array", "fast", 0, 8192, FAST_CAP_PAIRS)]
 
 
+def fp32_floor_ms(KP: int, T: int, P: int) -> float:
+    """The least time of the bf16 array forward's products on the FP32
+    pipe: KP^2 (T-1) P FFMA (padded states) over the card's SMs x 128 lanes
+    at its largest SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * KP * KP * (T - 1) * P / (sms * 128 * mhz * 1e6)
+
+
 def load_parent(parent: str) -> None:
     """Register the package of the checkout at ``parent`` as
     ``parent_port``, so that its modules (which import each other
@@ -1032,7 +1047,7 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
     (AB_MODES) at AB_FWD_SHAPES and fast array at FAST_CAP_PAIRS, alpha
     within KERNEL_ATOL (exact, raw) or APPROX_ATOL[mode] (fast, columns
     normalised) of the parent's, and equal to it bit for bit on the bf16
-    array branch, which keeps the parent's FFMA kernel; the backward at
+    array branch, which holds the parent's bits; the backward at
     AB_BWD_SHAPE on one alpha (this tree's) fed to both sides as the
     control, every output (the sums' per-group partials) equal to the
     parent's bit for bit. Median of 10
@@ -1054,6 +1069,15 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
                 log(f"[a/b] {side}: {fn}: ptxas {r['ptxas']}; SASS total "
                     f"{json.dumps(r['total'])}; densest loop "
                     f"{json.dumps(r['densest_loop'])}")
+                loop = r["densest_loop"]
+                if loop and not loop["HMMA"] and loop["FFMA"]:
+                    lds = sum(loop[k] for k in ("LDS", "LDS.64", "LDS.128"))
+                    log(f"[a/b] {side}: FFMA kernel's densest loop: "
+                        f"{loop['FFMA']} FFMA against {lds} shared loads "
+                        f"(LDS {loop['LDS']}, LDS.64 {loop['LDS.64']}, "
+                        f"LDS.128 {loop['LDS.128']}) of "
+                        f"{loop['instructions']} instructions: "
+                        f"{loop['FFMA'] / max(lds, 1):.2f} FFMA a load")
     sides = {"parent": pk, "this": kernels}
     res = {}
 
@@ -1082,7 +1106,7 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
         a = fwd(kernels)
         b = fwd(pk)
         if mode == "array" and profile != "exact":
-            # the bf16 array branch keeps the parent's FFMA kernel
+            # the bf16 array branch holds the parent's bits
             err, tol = (0.0 if equal_bits(a, b) else float("inf")), 0.0
             check = "alpha equal to the parent's bit for bit"
         else:
@@ -1098,6 +1122,9 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
             raise AssertionError(f"a/b: {what}: alpha differs from the "
                                  f"parent's by {err} (atol {tol}), finite="
                                  f"{finite}")
+        if mode == "array" and profile != "exact":
+            check += (f"; FP32-issue floor {fp32_floor_ms(t.KP, T, P):.3f} "
+                      "ms")
         turns(what, fwd, 10 if T <= 1024 else 3, check)
     for mode, profile in AB_MODES:
         dec = decs[mode, profile]
@@ -1511,6 +1538,67 @@ def fastsmc_ab(parent: str, FastSMC, DecodingParams, data) -> None:
         f"each side: {json.dumps({k: len(v) == 1 for k, v in digests.items()})}")
     if any(len(v) != 1 for v in digests.values()):
         raise AssertionError("fastsmc a/b: a side's runs differ")
+
+
+def ab_fast_legs(parent: str, ASMC, FastSMC, DecodingParams, data) -> None:
+    """The fast ASMC scale leg (batch FAST_CAP_PAIRS, or the cap the card's
+    free memory sets, the same on both sides) in turns (parent, this, this,
+    parent) and the fast FastSMC scale leg once a side (parent, this),
+    each through its own checkout's package: every output file equal to
+    the parent's byte for byte (decompressed), and the walls."""
+    import importlib
+    load_parent(parent)
+    sides = {"parent": tuple(importlib.import_module(f"parent_port.{m}")
+                             for m in ("pipelines.asmc", "pipelines.fastsmc",
+                                       "config")),
+             "this": None}
+    digests = {"parent": set(), "this": set()}
+    walls = {"parent": [], "this": []}
+    batches = set()
+    for i, side in enumerate(("parent", "this", "this", "parent")):
+        cls, params = (ASMC, DecodingParams) if side == "this" else \
+            (sides[side][0].ASMC, sides[side][2].DecodingParams)
+        root = os.path.join(OUT, f"ab_asmc_fast_{side}{i}")
+        torch.cuda.empty_cache()
+        a = cls(params.asmc(OUT, DQ, root, use_known_seed=True,
+                            do_posterior_sums=True,
+                            do_major_minor_posterior_sums=True, jobs=1000,
+                            job_ind=1),
+                data=data, device=DEVICE, batch_size=FAST_CAP_PAIRS,
+                decode_profile="fast")
+        batches.add(a.batch_size)
+        t0 = time.perf_counter()
+        res = a.decode_all_in_job(verbose=False)
+        torch.cuda.synchronize()
+        walls[side].append(time.perf_counter() - t0)
+        a.write_outputs(res)
+        del a, res
+        files = sorted(p for p in os.listdir(OUT)
+                       if p.startswith(os.path.basename(root) + "."))
+        digests[side].add(tuple((p.split(".", 1)[1],
+                                 decompressed_sha256(os.path.join(OUT, p)))
+                                for p in files))
+    log(f"[a/b fast legs] ASMC fast scale leg, batch {sorted(batches)}, wall "
+        f"s in turns: {json.dumps(walls)}")
+    for i, side in enumerate(("parent", "this")):
+        cls, params = (FastSMC, DecodingParams) if side == "this" else \
+            (sides[side][1].FastSMC, sides[side][2].DecodingParams)
+        f = cls(scale_params(params, f"ab_scale_fast_{side}"), data=data,
+                device=DEVICE, decode_profile="fast")
+        t0 = time.perf_counter()
+        f.run(verbose=False)
+        torch.cuda.synchronize()
+        walls[side].append(time.perf_counter() - t0)
+        digests[side].add(decompressed_sha256(f.params.ibd_output_path()))
+        log(f"[a/b fast legs] FastSMC fast scale leg, {side}: wall "
+            f"{walls[side][-1]:.3f} s, {f.n_segments} records")
+    same = len(batches) == 1 and digests["this"] == digests["parent"] \
+        and len(digests["this"]) == 2
+    log(f"[a/b fast legs] every output equal to the parent's byte for byte: "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"a/b fast legs: outputs differ from the "
+                             f"parent's (batches {sorted(batches)})")
 
 
 def seq_golden_leg(FastSMC, DecodingParams, kernels) -> dict:
@@ -2332,8 +2420,10 @@ def build_log(info, KP: int, K: int) -> None:
                 full, *flags = flags
                 outs = "all outputs" if full else \
                     "posterior, threshold sums"
-            if "ffma" in fn:
-                kind += " (array, bf16, FFMA)"
+            if "tile" in fn:
+                pairs = re.search(rf"{tag}Li(\d+)E", fn)
+                kind += (" (array, bf16, register tile, "
+                         f"{pairs.group(1) if pairs else '?'} pairs a lane)")
             elif kind != "reduce":
                 seq, approx = flags
                 kind += (f" ({'sequence' if seq else 'array'}, "
@@ -2429,6 +2519,10 @@ def main() -> int:
     if args.ab_parent:
         ab_parent(args.ab_parent, decs, kernels, info)
         forward_sum_orders(decs, kernels)
+        if scale_data is None:
+            scale_data = scale_panel()
+        ab_fast_legs(args.ab_parent, ASMC, FastSMC, DecodingParams,
+                     scale_data)
         if args.ab_only:
             batch_invariance(decs, kernels)
             log("[a/b] --ab-only: stopped after the A/B")

@@ -54,8 +54,10 @@
 // group of one state is 8 consecutive pairs. Every sum is in a fixed order
 // and no sum crosses a warp or a pair, so two runs give the same bits and a
 // pair's alpha does not depend on the batch around it.
-// The bf16 array branch keeps the FFMA kernel (hmm_forward_ffma_kernel):
-// on tensor cores it cannot hold its gate against the plain version.
+// The bf16 array branch runs its products on the FP32 pipe, in the plain
+// version's order of sums (on tensor cores it cannot hold its gate against
+// the plain version): hmm_forward_tile_kernel, a register tile a lane, one
+// warp a pair group's whole recursion, operators by bulk copy (below).
 #include "hmm_common.cuh"
 
 namespace fastsmc {
@@ -341,7 +343,7 @@ __global__ void __launch_bounds__((kMaxFwdWarps + 1) * 32)
                        const float* __restrict__ hem,  // [T][KP], SEQ only
                        bool op_bf16,                   // Mf is bf16 (turbo)
                        int ring) {
-  static_assert(SEQ || !APPROX, "the bf16 array branch is the FFMA kernel");
+  static_assert(SEQ || !APPROX, "the bf16 array branch is the tile kernel");
   constexpr int KP = 8 * NT;
   constexpr size_t kTile = tile_bytes(KP, APPROX);
   constexpr size_t kEntry = entry_bytes(KP, APPROX);
@@ -495,115 +497,330 @@ __global__ void __launch_bounds__((kMaxFwdWarps + 1) * 32)
   }
 }
 
-// The bf16 array branch: the FFMA kernel. On tensor cores this branch moves
-// alpha as far from the plain f32 version as a plain version with f64 sums
-// does (6.0e-3 to 1.7e-2 at T=8192, P=8192 over three random batches, with
-// the diagonal added last, against APPROX_ATOL's 5e-3 on an H100; PERF.md
-// §6): the carry, rounded to bf16 at every site and
-// normalised only once a block, follows whichever f32 sums it is given,
-// and only sums in the plain version's order (one fmaf chain over j
-// ascending, as below) stay on its trajectory. One block per 32 pairs
-// (lane = pair) walks the window; warp w owns the state rows w, w + 8, ...;
-// the operator is staged in shared memory each site.
+// The bf16 array branch: FFMA products on a register tile. On tensor cores
+// this branch moves alpha as far from the plain f32 version as a plain
+// version with f64 sums does (6.0e-3 to 1.7e-2 at T=8192, P=8192 over three
+// random batches, with the diagonal added last, against APPROX_ATOL's 5e-3;
+// NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): the carry, rounded to bf16 at
+// every site and normalised only once a block, follows whichever f32 sums it
+// is given, and only sums in the plain version's order stay on its
+// trajectory. So each alpha element is one fmaf chain over j ascending from
+// 0.f, on the FP32 pipe, and the rest is laid out to feed that pipe.
+//
+// Bound: fed from shared memory, a lane receives one 32-bit word a
+// wavefront, and an SM serves one wavefront a clock against four
+// warp-FFMAs; a uniform 16-byte load still takes four wavefronts. So a lane
+// that holds R rows x C pairs of accumulators loads R operator and C carry
+// words a j for R C FFMAs, and the product is shared-memory-bound unless
+// (R + C) / (R C) <= 1/4 (one pair a lane, R = 9: 10/9; 9 x 4: 13/36;
+// 9 x 8: 17/72).
+//
+// The design:
+//   - a warp owns 4 C pairs and all KP states, so a pair's whole recursion
+//     stays inside one warp: lane (a, b) = (lane % 8, lane / 8) holds the
+//     state rows a + 8 i (i < RPW) of the C pairs 4 C w + C b + cc. The
+//     carry goes through the warp's own [KP][S] shared buffer, between two
+//     __syncwarp; no barrier spans warps;
+//   - the operators by bulk copy a site ahead: a producer warp fills ring
+//     slots (the site's operator and emission rows) on full/empty mbarriers
+//     for the block's W consumer warps, as in the tensor-core kernel. The
+//     table (tables.tile_operators) is the operators rounded to bf16 and
+//     transposed, [j][k], the same f32 values on fast and turbo: the 8 row
+//     groups of a warp read 8 consecutive words of row j, in 8 banks;
+//   - the normalising sums are column_sum's: each row group's rows added in
+//     order in its lane, then the 8 groups added in order (shuffles);
+//   - C and W come from P and the SM count (tile_shape), and no sum depends
+//     on them, so neither do the bits, nor a pair's alpha on its batch.
 
-// Dynamic shared memory of the FFMA kernel for KP states and n_red
-// reduction buffers: the staged operator [KP][KP], one [KP][kPairs]
-// operand and the [kWarps][kPairs] partial column sums.
-inline size_t shared_bytes(int KP, int n_red) {
-  return sizeof(float) * (static_cast<size_t>(KP) * KP + KP * kPairs +
-                          n_red * kWarps * kPairs);
+constexpr int kTileMaxRing = 4;
+constexpr int kTileMaxWarps = 8;     // consumer warps a block, at most
+constexpr int kTileMaxAcc = 72;      // accumulators a lane, at most (R C)
+constexpr int kTileRowGroups = 8;    // a = lane % 8: rows a + 8 i
+constexpr int kTilePairGroups = 4;   // b = lane / 8: C pairs each
+
+// Floats per row of a warp's carry: past its 4 C pairs to an odd multiple
+// of 4, so that the 8 row groups' stores of one pair group fall in 8
+// distinct groups of 4 banks.
+__host__ __device__ constexpr int tile_stride(int C) {
+  return 4 * (C + 1 + (C & 1));
 }
 
-// acc[i] = sum_j sM[k_i][j] * sV[j][lane], j ascending, for this thread's rows.
-template <int RPW>
-__device__ __forceinline__ void matvec(float (&acc)[RPW],
-                                       const float* __restrict__ sM,
-                                       const float* __restrict__ sV, int lane,
-                                       int warp) {
-  constexpr int KP = RPW * kWarps;
+// Bytes of one ring slot: the operator [KP][KP] and the emission rows
+// [3][KP], f32.
+__host__ __device__ constexpr size_t tile_slot_bytes(int KP) {
+  return sizeof(float) * (static_cast<size_t>(KP) * KP + 3 * KP);
+}
+
+// C adjacent floats of shared memory as 16-, 8- or 4-byte accesses.
+template <int C>
+__device__ __forceinline__ void load_pairs(float (&v)[C], const float* p) {
+  if constexpr (C % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < KP; ++j) {
-    const float v = sV[j * kPairs + lane];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-      acc[i] = fmaf(sM[(warp + kWarps * i) * KP + j], v, acc[i]);
+    for (int q = 0; q < C; q += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + q);
+      v[q] = x.x, v[q + 1] = x.y, v[q + 2] = x.z, v[q + 3] = x.w;
+    }
+  } else if constexpr (C == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = *p;
   }
 }
 
-template <int RPW>
-__global__ void __launch_bounds__(kThreads)
-    hmm_forward_ffma_kernel(const float* __restrict__ Mf, int G,
+template <int C>
+__device__ __forceinline__ void store_pairs(float* p, const float (&v)[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < C; q += 4)
+      *reinterpret_cast<float4*>(p + q) =
+          make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Alpha of the C adjacent pairs p0, p0 + 1, ... of one state row: one
+// 2C-byte store where all are live and it is aligned (`vec`), else pair by
+// pair, live pairs only.
+template <int C>
+__device__ __forceinline__ void store_alpha(__nv_bfloat16* row, int p0, int P,
+                                            bool vec, const float (&v)[C]) {
+  if (vec) {
+    if constexpr (C == 8)
+      *reinterpret_cast<uint4*>(row + p0) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    else if constexpr (C == 4)
+      *reinterpret_cast<uint2*>(row + p0) =
+          make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    else if constexpr (C == 2)
+      *reinterpret_cast<uint32_t*>(row + p0) = pack_bf16(v[0], v[1]);
+    else
+      row[p0] = float_to_alpha<true>(v[0]);
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc)
+      if (p0 + cc < P) row[p0 + cc] = float_to_alpha<true>(v[cc]);
+  }
+}
+
+// acc[i][cc] = sum_j Mt[j][a + 8 i] * sC[j][C b + cc], one fmaf chain over
+// j ascending from 0.f. The operands of step j + 1 are loaded into a second
+// register set while step j's products issue: where a scheduler holds one
+// warp (P=8192 on 132 SMs), no other warp hides the shared-memory latency.
+template <int RPW, int C>
+__device__ __forceinline__ void tile_product(float (&acc)[RPW][C],
+                                             const float* __restrict__ Mt,
+                                             const float* __restrict__ sC,
+                                             int a, int b) {
+  constexpr int KP = RPW * kTileRowGroups;
+  constexpr int S = tile_stride(C);
+  auto load = [&](int j, float (&m)[RPW], float (&v)[C]) {
+    load_pairs<C>(v, sC + j * S + b * C);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) m[i] = Mt[j * KP + a + kTileRowGroups * i];
+  };
+  auto step = [&](const float (&m)[RPW], const float (&v)[C]) {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) acc[i][cc] = fmaf(m[i], v[cc], acc[i][cc]);
+  };
+#pragma unroll
+  for (int i = 0; i < RPW; ++i)
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) acc[i][cc] = 0.f;
+  float m0[RPW], v0[C], m1[RPW], v1[C];
+  load(0, m0, v0);
+#pragma unroll 1
+  for (int j = 0; j < KP - 2; j += 2) {
+    load(j + 1, m1, v1);
+    step(m0, v0);
+    load(j + 2, m0, v0);
+    step(m1, v1);
+  }
+  load(KP - 1, m1, v1);
+  step(m0, v0);
+  step(m1, v1);
+}
+
+// column_sum for each of the lane's pairs: `part` (the lane's rows, in
+// order) of row groups 0, 1, ..., 7 added in order, from 0.f.
+template <int C>
+__device__ __forceinline__ void group_sums(const float (&part)[C], float (&s)[C],
+                                           int b) {
+#pragma unroll
+  for (int cc = 0; cc < C; ++cc) {
+    s[cc] = 0.f;
+#pragma unroll
+    for (int g = 0; g < kTileRowGroups; ++g)
+      s[cc] += __shfl_sync(0xffffffffu, part[cc], kTileRowGroups * b + g);
+  }
+}
+
+// The block: W = blockDim.x / 32 - 1 consumer warps (see the design above),
+// then one producer warp whose lane 0 issues the ring's bulk copies. Shared
+// memory: `ring` slots of tile_slot_bytes, the consumer warps' carries
+// [W][KP][S], then `ring` full and `ring` empty mbarriers.
+template <int RPW, int C>
+__global__ void __launch_bounds__((kTileMaxWarps + 1) * 32)
+    hmm_forward_tile_kernel(const float* __restrict__ Mt,   // [G][KP][KP], [j][k]
+                            int G,
                             const float* __restrict__ em,   // [T][3][KP]
                             const float* __restrict__ obs,  // [T][2][P]
                             const float* __restrict__ isp,  // [KP]
                             const int* __restrict__ ops,    // [T]
                             __nv_bfloat16* __restrict__ alpha,  // [T][KP][P]
-                            int T, int P,
-                            bool op_bf16) {  // Mf is bf16 (turbo)
-  constexpr int KP = RPW * kWarps;
+                            int T, int P, int ring) {
+  constexpr int KP = RPW * kTileRowGroups;
+  constexpr int S = tile_stride(C);
+  constexpr size_t kSlot = tile_slot_bytes(KP);
   extern __shared__ float4 smem4[];
-  float* sM = reinterpret_cast<float*>(smem4);  // [KP][KP] operator of site t
-  float* sC = sM + KP * KP;                     // [KP][kPairs] carry alpha_{t-1}
-  float* sRed = sC + KP * kPairs;               // [kWarps][kPairs]
-  const int lane = threadIdx.x % kPairs;
-  const int warp = threadIdx.x / kPairs;
-  const int p = blockIdx.x * kPairs + lane;
-  const bool live = p < P;
-  const size_t Pz = static_cast<size_t>(P);
+  const int n_warps = blockDim.x / 32 - 1;
+  char* slots = reinterpret_cast<char*>(smem4);
+  float* carries = reinterpret_cast<float*>(slots + ring * kSlot);
+  uint64_t* full = reinterpret_cast<uint64_t*>(carries + n_warps * KP * S);
+  uint64_t* empty = full + ring;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  float c[RPW];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring; ++s) {
+      // two bulk copies fill a slot: the operator and the emission rows
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(&full[s])), "r"(2) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(&empty[s])), "r"(32 * n_warps)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // barriers initialised; the only block-wide barrier
+
+  if (warp == n_warps) {
+    // producer: ring entry n (site n + 1) into slot n % ring once every
+    // consumer has released that slot's previous entry
+    if (lane == 0) {
+      for (int n = 0; n + 1 < T; ++n) {
+        const int s = n % ring;
+        if (n >= ring) wait_phase(&empty[s], (n / ring - 1) & 1);
+        const int op = ops[n + 1];
+        if (op < 0 || op >= G) __trap();  // a caller bug: stop the kernel
+        char* e = slots + s * kSlot;
+        bulk_copy(e, Mt + static_cast<size_t>(op) * KP * KP,
+                  sizeof(float) * KP * KP, &full[s]);
+        bulk_copy(e + sizeof(float) * KP * KP,
+                  em + static_cast<size_t>(n + 1) * 3 * KP,
+                  sizeof(float) * 3 * KP, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int a = lane % kTileRowGroups;
+  const int b = lane / kTileRowGroups;
+  const int p0 = (blockIdx.x * n_warps + warp) * kTilePairGroups * C + b * C;
+  const bool vec = P % C == 0 && p0 + C <= P;
+  const size_t Pz = static_cast<size_t>(P);
+  float* sC = carries + warp * KP * S;  // this warp's carry [KP][S]
+
+  // a site's observations of this lane's pairs; dead pairs read oz=1, oh=0
+  auto load_obs = [&](int t, float (&oz)[C], float (&oh)[C]) {
+    const float* o = obs + 2 * static_cast<size_t>(t) * Pz;
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+      const bool live = p0 + cc < P;
+      oz[cc] = live ? o[p0 + cc] : 1.f;
+      oh[cc] = live ? o[Pz + p0 + cc] : 0.f;
+    }
+  };
+  // alpha of site t, and the carry the next site's product reads
+  auto store = [&](int t, const float (&c)[RPW][C]) {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int k = a + kTileRowGroups * i;
+      store_alpha<C>(alpha + (static_cast<size_t>(t) * KP + k) * Pz, p0, P,
+                     vec, c[i]);
+      float r[C];
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) r[cc] = operand<true>(c[i][cc]);
+      store_pairs<C>(sC + k * S + b * C, r);
+    }
+  };
+
+  float c[RPW][C];
+  float oz[C], oh[C];
   {
     // site 0 (kernels.py:152-156)
-    const float oz = live ? obs[p] : 1.f;
-    const float oh = live ? obs[Pz + p] : 0.f;
-    float part = 0.f;
+    load_obs(0, oz, oh);
+    float part[C], s[C];
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) part[cc] = 0.f;
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const int k = warp + kWarps * i;
-      c[i] = isp[k] * emission(em, k, KP, oz, oh);
-      part += c[i];
-    }
-    const float s = column_sum(sRed, part, lane, warp);
+      const int k = a + kTileRowGroups * i;
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int k = warp + kWarps * i;
-      c[i] = c[i] / s;
-      if (live) alpha[k * Pz + p] = float_to_alpha<true>(c[i]);
-      sC[k * kPairs + lane] = operand<true>(c[i]);
+      for (int cc = 0; cc < C; ++cc) {
+        c[i][cc] = isp[k] * emission(em, k, KP, oz[cc], oh[cc]);
+        part[cc] += c[i][cc];
+      }
     }
+    group_sums<C>(part, s, b);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) c[i][cc] = c[i][cc] / s[cc];
+    store(0, c);
   }
+  if (T > 1) load_obs(1, oz, oh);
+  __syncwarp();  // the carry visible to the warp
   for (int t = 1; t < T; ++t) {
-    stage<true>(sM, Mf, op_bf16, ops[t], G, KP);
-    __syncthreads();  // operator and carry visible; last step's sRed reads done
-    float acc[RPW];
-    matvec<RPW>(acc, sM, sC, lane, warp);
-    const float* em_t = em + static_cast<size_t>(t) * 3 * KP;
-    const float oz = live ? obs[(2 * static_cast<size_t>(t)) * Pz + p] : 1.f;
-    const float oh = live ? obs[(2 * static_cast<size_t>(t) + 1) * Pz + p] : 0.f;
-    float part = 0.f;
+    const int n = t - 1;  // the site's ring entry
+    // the next site's observations, loaded before this site's product so
+    // that their latency hides behind it
+    float oz_next[C], oh_next[C];
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      c[i] = acc[i] * emission(em_t, warp + kWarps * i, KP, oz, oh);
-      part += c[i];
-    }
-    // block normalisation (kernels.py:145, :396-398)
-    float inv;
+    for (int cc = 0; cc < C; ++cc) oz_next[cc] = 1.f, oh_next[cc] = 0.f;
+    if (t + 1 < T) load_obs(t + 1, oz_next, oh_next);
+    wait_phase(&full[n % ring], (n / ring) & 1);
+    const float* Mt_t =
+        reinterpret_cast<const float*>(slots + (n % ring) * kSlot);
+    float acc[RPW][C];
+    tile_product<RPW, C>(acc, Mt_t, sC, a, b);
+    const float* em_t = Mt_t + KP * KP;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc)
+        c[i][cc] = acc[i][cc] * emission(em_t, a + kTileRowGroups * i, KP,
+                                         oz[cc], oh[cc]);
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                 :: "r"(smem_u32(&empty[n % ring])) : "memory");
     if (t % kBlockSites == kBlockSites - 1) {
-      inv = 1.f / column_sum(sRed, part, lane, warp);
-    } else {
-      __syncthreads();  // every warp's reads of sC done before it is rewritten
-      inv = 1.f;
-    }
-    __nv_bfloat16* alpha_t = alpha + static_cast<size_t>(t) * KP * Pz;
+      // block normalisation (kernels.py:145, :396-398)
+      float part[C], s[C];
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int k = warp + kWarps * i;
-      c[i] = c[i] * inv;
-      if (live) alpha_t[k * Pz + p] = float_to_alpha<true>(c[i]);
-      sC[k * kPairs + lane] = operand<true>(c[i]);
+      for (int cc = 0; cc < C; ++cc) part[cc] = 0.f;
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) part[cc] += c[i][cc];
+      group_sums<C>(part, s, b);
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) {
+        const float inv = 1.f / s[cc];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) c[i][cc] = c[i][cc] * inv;
+      }
     }
+    __syncwarp();  // the warp's reads of the carry done
+    store(t, c);
+    __syncwarp();  // the new carry visible
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) oz[cc] = oz_next[cc], oh[cc] = oh_next[cc];
   }
 }
 
@@ -645,19 +862,75 @@ int ring_depth(size_t entry, int blocks, int sms) {
   return r;
 }
 
-// The FFMA kernel: the bf16 array branch.
+// The tile kernel's shape: C pairs a lane (1, 2, 4 or 8, at most
+// kTileMaxAcc accumulators) and W consumer warps a block (W = the warps an
+// SM must hold, at most kTileMaxWarps), whichever C gives the least time a
+// site on the busiest SM in a model of its work: each of the SM's four
+// schedulers issues its warps' instructions one a clock (a warp-site: KP x
+// (R C FFMA + R operator loads + the carry's loads + 1)), and its shared
+// memory serves one wavefront a clock (a warp-site: KP x (R + C)). Ties go
+// to the larger C, whose product leaves shared memory more slack.
+struct TileShape {
+  int C, W;
+};
+
 template <int RPW>
-int launch_forward_ffma(const ForwardArgs& a, cudaStream_t stream) {
-  constexpr int KP = RPW * kWarps;
-  const size_t smem = shared_bytes(KP, 1);
-  auto* kernel = hmm_forward_ffma_kernel<RPW>;
+TileShape tile_shape(int P, int sms) {
+  constexpr int KP = RPW * kTileRowGroups;
+  TileShape best{1, 1};
+  double best_cost = 0.0;
+  for (int C = 1; C <= 8 && RPW * C <= kTileMaxAcc; C *= 2) {
+    const int warps = (P + kTilePairGroups * C - 1) / (kTilePairGroups * C);
+    int W = (warps + sms - 1) / sms;
+    if (W > kTileMaxWarps) W = kTileMaxWarps;
+    const int blocks = (warps + W - 1) / W;
+    const int per_sm = (blocks + sms - 1) / sms * W;  // warps, busiest SM
+    const double issue = ((per_sm + 3) / 4) * KP *
+                         (RPW * C + RPW + (C + 3) / 4 + 1.0);
+    const double shared = per_sm * KP * (RPW + C + 0.0);
+    const double cost = issue > shared ? issue : shared;
+    if (C == 1 || cost <= best_cost) best = TileShape{C, W}, best_cost = cost;
+  }
+  return best;
+}
+
+// The tile kernel at C pairs a lane and W warps a block. Ring depth: as
+// many slots (at most kTileMaxRing) as fit beside the other blocks an SM
+// must hold for the whole grid to be resident; two wherever two fit alone.
+template <int RPW, int C>
+int launch_forward_tile_c(const ForwardArgs& a, int W, cudaStream_t stream) {
+  constexpr int KP = RPW * kTileRowGroups;
+  constexpr size_t slot = tile_slot_bytes(KP);
+  const size_t fixed = sizeof(float) * W * KP * tile_stride(C) +
+                       2 * sizeof(uint64_t) * kTileMaxRing;
+  const int warps = (a.P + kTilePairGroups * C - 1) / (kTilePairGroups * C);
+  const int blocks = (warps + W - 1) / W;
+  const size_t room = kFwdMaxShared / ((blocks + a.sms - 1) / a.sms);
+  int ring = room > fixed ? static_cast<int>((room - fixed) / slot) : 0;
+  if (ring > kTileMaxRing) ring = kTileMaxRing;
+  if (ring < 2) ring = fixed + 2 * slot <= kFwdMaxShared ? 2 : 1;
+  const size_t smem = ring * slot + sizeof(float) * W * KP * tile_stride(C) +
+                      2 * ring * sizeof(uint64_t);
+  if (smem > kFwdMaxShared) return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = hmm_forward_tile_kernel<RPW, C>;
   const int rc = allow_shared(kernel, smem);
   if (rc != 0) return rc;
-  const dim3 grid((a.P + kPairs - 1) / kPairs);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<blocks, 32 * (W + 1), smem, stream>>>(
       a.Mf, a.G, a.em, a.obs, a.isp, a.ops,
-      static_cast<__nv_bfloat16*>(a.alpha), a.T, a.P, a.op_bf16);
+      static_cast<__nv_bfloat16*>(a.alpha), a.T, a.P, ring);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tile kernel: the bf16 array branch.
+template <int RPW>
+int launch_forward_tile(const ForwardArgs& a, cudaStream_t stream) {
+  const TileShape s = tile_shape<RPW>(a.P, a.sms);
+  if constexpr (RPW * 8 <= kTileMaxAcc)
+    if (s.C == 8) return launch_forward_tile_c<RPW, 8>(a, s.W, stream);
+  if constexpr (RPW * 4 <= kTileMaxAcc)
+    if (s.C == 4) return launch_forward_tile_c<RPW, 4>(a, s.W, stream);
+  if (s.C == 2) return launch_forward_tile_c<RPW, 2>(a, s.W, stream);
+  return launch_forward_tile_c<RPW, 1>(a, s.W, stream);
 }
 
 // The tensor-core kernel: the exact branches and the bf16 sequence branch.
@@ -684,7 +957,7 @@ int launch_forward_mma(const ForwardArgs& a, cudaStream_t stream) {
 template <int NT, bool SEQ, bool APPROX>
 int launch_forward(const ForwardArgs& a, cudaStream_t stream) {
   if constexpr (APPROX && !SEQ)
-    return launch_forward_ffma<NT>(a, stream);
+    return launch_forward_tile<NT>(a, stream);
   else
     return launch_forward_mma<NT, SEQ, APPROX>(a, stream);
 }
@@ -702,10 +975,12 @@ int forward_variant(const ForwardArgs& a, int nt, cudaStream_t stream) {
 // Launch the forward kernel on `stream` (device `device`); returns the
 // cudaError_t of the launch. `profile` is kExact, kFast or kTurbo: on
 // kExact `Mf` and `Mlo` are the operators' TF32 split (hi, lo; f32 values
-// with the low 13 mantissa bits zero, Mf = hi + lo); on kFast `Mf` is f32
-// and on kTurbo bf16, with `Mlo` null. Alpha is f32 on kExact, bf16
-// otherwise. Sequence mode when `rops` and `hem` are given, array mode
-// when both are null. KP must be a multiple of 8, at most 128.
+// with the low 13 mantissa bits zero, Mf = hi + lo); on kFast and kTurbo
+// `Mlo` is null, and `Mf` is in sequence mode the operators (f32 on kFast,
+// bf16 on kTurbo), in array mode their bf16 values transposed, f32 [G][j][k]
+// on both (tables.tile_operators). Alpha is f32 on kExact, bf16 otherwise.
+// Sequence mode when `rops` and `hem` are given, array mode when both are
+// null. KP must be a multiple of 8, at most 128.
 extern "C" int fastsmc_hmm_forward(const void* Mf, const float* Mlo,
                                    int profile, int G, const float* em,
                                    const float* obs, const float* isp,

@@ -29,8 +29,11 @@ The forward kernel computes the exact profile's products on tensor cores as
 3xTF32 (each operand split into two TF32 values, three products summed in
 f32; never a single TF32 pass) and the sequence-mode fast/turbo products as
 bf16 on tensor cores, each held to its plain version by the same tolerance
-as before; its array-mode fast/turbo branch keeps the FFMA design, the only
-one that stays within that branch's tolerance (csrc/hmm_forward.cu).
+as before; its array-mode fast/turbo branch runs on the FP32 pipe with the
+plain version's order of sums, the only order that stays within that
+branch's tolerance, from the operators' bf16 values transposed
+(``tables.tile_operators``, made once per operator tensor;
+csrc/hmm_forward.cu).
 
 A wrapper runs the plain version only for tensors on the CPU. For a CUDA
 tensor it launches its kernel or raises; ``LAUNCHES`` counts the launches
@@ -44,11 +47,12 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import segments as seg
 from ._build import load_library
 from .oracle import DecodeContext
-from .tables import DecodeTables
+from .tables import DecodeTables, tile_operators
 
 # launches per kernel instantiation since the last clear(): the wrapper
 # adds one exactly where it launches its kernel
@@ -322,13 +326,29 @@ def _raise_on(rc: int, kernel: str):
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
 
 
+# each operator tensor's table for the forward's bf16 array branch
+# (tables.tile_operators) and the tensor's version it was made from
+_TILE_TABLES = WeakIdKeyDictionary()
+
+
+def _tile_table(Mf: torch.Tensor) -> torch.Tensor:
+    """``tile_operators(Mf)``, made at the first launch on ``Mf`` and again
+    only after ``Mf`` changes in place."""
+    hit = _TILE_TABLES.get(Mf)
+    if hit is None or hit[0] != Mf._version:
+        hit = (Mf._version, tile_operators(Mf))
+        _TILE_TABLES[Mf] = hit
+    return hit[1]
+
+
 def forward(Mf, em, obs, isp, ops, mask, seq: Optional[Seq] = None,
             profile: str = "exact", split=None) -> torch.Tensor:
     """alpha ``[T, KP, P]`` (f32 exact, bf16 fast/turbo): the CUDA forward
     kernel for CUDA tensors, :func:`forward_reference` for CPU tensors.
     ``Mf`` is bf16 on the turbo profile, f32 otherwise. The exact profile
     needs ``split = (hi, lo)``, the operators' TF32 split that its kernel
-    reads (``DecodeTables.split``); the plain version reads ``Mf``."""
+    reads (``DecodeTables.split``); the plain version reads ``Mf``. The
+    fast/turbo array-mode kernel reads ``tile_operators(Mf)``."""
     if profile == "exact" and split is None:
         raise ValueError("the exact forward needs the operators' TF32 "
                          "split (DecodeTables.split)")
@@ -341,6 +361,8 @@ def forward(Mf, em, obs, isp, ops, mask, seq: Optional[Seq] = None,
         Mf, lo = split
         _check("Mf_hi", Mf, torch.float32, (G, KP, KP))
         _check("Mf_lo", lo, torch.float32, (G, KP, KP))
+    elif seq is None:
+        Mf = _tile_table(Mf)
     alpha = torch.empty((T, KP, P), dtype=alpha_dtype(profile),
                         device=obs.device)
     name = kernel_name("hmm_forward", seq is not None, profile)

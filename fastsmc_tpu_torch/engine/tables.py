@@ -36,6 +36,16 @@ def tf32_split(M: torch.Tensor):
     return hi, rna(M.float() - hi)
 
 
+def tile_operators(M: torch.Tensor) -> torch.Tensor:
+    """The operators ``M`` ``[G, KP, KP]`` (f32 or bf16) as the forward
+    kernel's bf16 array branch reads them: each value rounded to bf16 (to
+    nearest even; a bf16 table's values as they are), held as f32, and each
+    operator transposed, ``[G, j, k]``, so that a warp's row groups read
+    consecutive words. The fast profile's f32 table and the turbo profile's
+    bf16 table of the same operators give the same bits."""
+    return M.to(torch.bfloat16).float().transpose(-2, -1).contiguous()
+
+
 def padded_states(K: int) -> int:
     """State rows the kernels compute: K rounded up to a multiple of 8."""
     if not 0 < K <= MAX_STATES:

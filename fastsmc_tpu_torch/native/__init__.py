@@ -86,7 +86,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        lib_path = library_path()
+        try:
+            lib_path = library_path()
+        except OSError:
+            # the source is absent (a package installed without it)
+            return None
         if not lib_path.exists() and not _compile(lib_path):
             return None
         try:

@@ -402,6 +402,71 @@ def test_turbo_equals_fast_on_the_card(cuda, ctx, seq_ctx, mode):
         assert torch.equal(a[name], b[name]), name
 
 
+# the bf16 array forward kernel's edges: P against its pair tiles (a warp
+# owns 4 C pairs, C = 1, 2, 4, 8 by the batch; a block W warps), aligned
+# and not (a lane stores its C pairs' alpha as one vector only where P is a
+# multiple of C), and T against the 8-site normalisation blocks
+TILE_P = [1, 3, 5, 31, 33, 65, 2048, 3137, 8187, 8192, 16381, 16384]
+TILE_T = [1, 7, 8, 9, 1024]
+
+
+@pytest.fixture(scope="module")
+def tile_decs(cuda, ctx):
+    return {p: _variant(ctx, None, "array", p) for p in ("fast", "turbo")}
+
+
+@pytest.mark.parametrize("profile", ["fast", "turbo"])
+@pytest.mark.parametrize("T", TILE_T)
+@pytest.mark.parametrize("P", TILE_P)
+def test_tile_forward_matches_plain_at_its_edges(tile_decs, profile, T, P):
+    """The fast/turbo array forward against its plain version (columns
+    normalised, within APPROX_ATOL["array"]); one launch counted."""
+    dec = tile_decs[profile]
+    t = dec.tables
+    obs, em, ops_f, _, mask = _inputs(dec, 2000, T, P, seed=12)
+    name = kernels.kernel_name("hmm_forward", False, profile)
+    n = kernels.LAUNCHES[name]
+    got = kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, None, profile)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (T, t.KP, P)
+    assert bool(torch.isfinite(got).all())
+    want = kernels.forward_reference(t.Mf, em, obs, t.isp, ops_f, mask, None,
+                                     profile)
+    a, w = got.float(), want.float()
+    torch.testing.assert_close(a / a.sum(1, keepdim=True),
+                               w / w.sum(1, keepdim=True), rtol=0,
+                               atol=APPROX_ATOL["array"])
+
+
+@pytest.mark.parametrize("P", TILE_P)
+def test_tile_forward_turbo_equals_fast(tile_decs, P):
+    fast, turbo = tile_decs["fast"], tile_decs["turbo"]
+    obs, em, ops_f, _, mask = _inputs(fast, 2000, 64, P, seed=13)
+    a = kernels.forward(fast.tables.Mf, em, obs, fast.tables.isp, ops_f,
+                        mask, None, "fast")
+    b = kernels.forward(turbo.tables.Mf, em, obs, turbo.tables.isp, ops_f,
+                        mask, None, "turbo")
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P,n", [(65, 1), (3137, 33), (8192, 3137),
+                                 (16384, 2048), (27296, 8192)])
+def test_tile_forward_batch_invariance(tile_decs, P, n):
+    """The first n pairs of a P-pair fast array forward and the same n
+    pairs alone, each launch at the pair tile its batch picks: alpha equal
+    bit for bit."""
+    dec = tile_decs["fast"]
+    t = dec.tables
+    obs, em, ops_f, _, mask = _inputs(dec, 3000, 64, P, seed=14)
+
+    def fwd(obs):
+        return kernels.forward(t.Mf, em, obs, t.isp, ops_f, mask, None,
+                               "fast")
+
+    assert torch.equal(fwd(obs)[..., :n], fwd(obs[..., :n].contiguous()))
+
+
 # the alpha-wall probe's kernels at KC=128 (the only width they take), a
 # short window, and P=40 (dead lanes in the second 32-pair block)
 ALPHA_WALL_SHAPE = alpha_wall.Shape(KC=128, KA=72, S=8, P=40, T=64, G=5)

@@ -20,7 +20,8 @@ from fastsmc_tpu.engine.kernels import PallasDecoder
 
 from fastsmc_tpu_torch.engine import kernels
 from fastsmc_tpu_torch.engine.hmm import BatchedDecoder, bucket_len
-from fastsmc_tpu_torch.engine.tables import DecodeTables, padded_states
+from fastsmc_tpu_torch.engine.tables import (DecodeTables, padded_states,
+                                             tile_operators)
 
 from test_torch_host import contexts
 
@@ -186,3 +187,48 @@ def test_cuda_device_without_cuda_raises(ctx):
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="CUDA"):
         kernels.GpuDecoder(ctx, "cuda")
+
+
+def test_tile_operators_are_the_bf16_values_transposed(ctx):
+    """The bf16 array forward kernel's table: the fast profile's f32
+    operators rounded to bf16 and the turbo profile's bf16 operators give
+    the same bits, each operator transposed ([j][k])."""
+    fast = DecodeTables.from_context(ctx, "cpu", torch.float32)
+    turbo = DecodeTables.from_context(ctx, "cpu", torch.bfloat16)
+    tf, tt = tile_operators(fast.Mf), tile_operators(turbo.Mf)
+    assert tf.dtype == tt.dtype == torch.float32 and tf.is_contiguous()
+    assert tf.shape == fast.Mf.shape
+    assert torch.equal(tf, kernels._bf16(fast.Mf).transpose(1, 2))
+    assert torch.equal(tt, turbo.Mf.float().transpose(1, 2))
+    assert torch.equal(tf, tt)
+
+
+def test_tile_operators_permute_each_operator_bijectively():
+    """Distinct bf16-exact values land once each, value (k, j) of an
+    operator at (j, k) of the same operator."""
+    G, KP = 2, 72
+    i = torch.arange(G * KP * KP)
+    x = ((1 + (i % 128) / 128) * 2.0 ** (i // 128 - 40)).float()
+    x = x.view(G, KP, KP)
+    got = tile_operators(x)
+    assert torch.equal(tile_operators(x.to(torch.bfloat16)), got)
+    for g in range(G):
+        assert torch.equal(got[g].flatten().sort().values,
+                           x[g].flatten().sort().values)
+        assert got[g].flatten().unique().numel() == KP * KP
+    for g, j, k in ((0, 0, 0), (0, 3, 70), (1, 71, 5), (1, 40, 40)):
+        assert got[g, j, k] == x[g, k, j]
+
+
+def test_tile_table_is_made_once_per_operator_tensor():
+    """The forward wrapper makes an operator tensor's table at its first
+    launch, and again only after the tensor changes in place."""
+    M = torch.rand(3, 16, 16)
+    first = kernels._tile_table(M)
+    assert kernels._tile_table(M) is first
+    assert torch.equal(first, tile_operators(M))
+    M.mul_(0.5)
+    again = kernels._tile_table(M)
+    assert again is not first and torch.equal(again, tile_operators(M))
+    other = M.clone()
+    assert kernels._tile_table(other) is not again
