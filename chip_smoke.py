@@ -10,11 +10,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      kernel (alpha) and the backward kernel with all six outputs, at a
      main-path shape (T=1024, P=8192), at a window padded past the panel
      end and with P=8187 (dead lanes in the last 32-pair block); the block
-     reduction on the backward kernel's partials; median times from CUDA
-     events, per backward output; then the forward kernel and the backward
-     kernel with the two sums at the ASMC scale leg's batches (the whole
-     chromosome's T=8192 window, P=8192 and the last batch's P=3137),
-     against their plain versions; batch invariance: 3,137 pairs as the
+     reduction of both sums' partials, equal bit for bit to an in-order
+     f64 sum; median times from CUDA events, per backward output; then the
+     forward kernel and the backward kernel with the two sums at the ASMC
+     scale leg's batches (the whole chromosome's T=8192 window, P=8192 and
+     the last batch's P=3137), against their plain versions, and the block
+     reduction timed there too (P=8192); batch invariance: 3,137 pairs as the
      first of an 8,192-pair launch and alone give the same bits, forward
      and backward, array and sequence mode, exact and fast;
   4. FastSMC golden leg: FastSMC(...).run() on artifacts/panels/
@@ -66,8 +67,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      sequence-mode sums) and fast is within PROFILE_SUM_ATOL per pair of the
      sequence-mode golden.
  13. the alpha-wall probe (fastsmc_tpu_torch.probes.alpha_wall, run before
-     the legs of 4.-12.): its six variants' kernels against their plain
-     versions at the probe's shape (T=4096, P=8192, KC=128, KA=72, S=8)
+     the legs of 4.-12.): the backward kernel's four instantiations' ptxas
+     lines and SASS counts (each densest loop must hold HGMMA or HMMA, and
+     fewer than ALPHA_WALL_FFMA_MAX FFMA); its six variants'
+     kernels against their plain versions at the probe's shape (T=4096,
+     P=8192, KC=128, KA=72, S=8)
      and with P=8187 (raw alpha within ALPHA_WALL_FWD_RTOL, the backward
      output within ALPHA_WALL_BWD_ATOL, its raw carry after site 1 within
      ALPHA_WALL_CARRY_RTOL; two wrongly normalising forwards must miss the
@@ -156,7 +160,11 @@ partials); times in turns three times each, and the bf16 array rows'
 FP32-issue floor; both builds' ptxas lines and SASS counts (the FFMA
 kernels' densest loops as FFMA per shared load); then each forward branch
 against its plain version beside the plain version with f64 sums against
-it; then the fast ASMC scale leg (in turns) and the fast FastSMC scale leg
+it; the block reduction of both sums' partials at T=1024 and T=8192
+(P=8192), equal to the parent's bit for bit, times in turns; the
+alpha-wall probe's three backward variants at the probe's shape, each
+side within phase 13's gates of the plain version, times in turns; then
+the fast ASMC scale leg (in turns) and the fast FastSMC scale leg
 through each checkout's package, every output equal to the parent's byte
 for byte. --ab-only stops after that and the batch-invariance check.
 """
@@ -239,7 +247,8 @@ F1_MIN = 0.99
 # scale); one bf16 step is 2^-8 to 2^-7 relative. Largest readings on an
 # H100 over the six variants at P=8192 and 8187: forward alpha 7.8e-3
 # relative (2^-7: one bf16 step, in every forward variant), backward
-# output 1.8e-5 absolute (values in (0, 1]). Gates: two bf16 steps on
+# output 1.8e-5 absolute with FFMA products and 2.0e-5 with wgmma ones
+# (values in (0, 1]). Gates: two bf16 steps on
 # alpha, about 10x the reading on the backward. A forward that normalises
 # at every site, held to fwd_norm_block's plain version, reads 36; one
 # that divides by the stored rows' sum reads 1.18.
@@ -252,6 +261,9 @@ ALPHA_WALL_BWD_ATOL = 2e-4
 # normalises at every site under block normalisation must miss it.
 ALPHA_WALL_CARRY_RTOL = 1.6e-2
 ALPHA_WALL_CARRY_SITE = 1
+# FFMA in the densest loop of the probe's backward above which its products
+# did not all go to the tensor cores (alpha_wall_sass)
+ALPHA_WALL_FFMA_MAX = 256
 # the card's published peaks (H100 SXM, dense, at 700 W): HBM bytes/s and
 # FLOP/s by operand type. A
 # bound is the larger of bytes / MEM_BW and FLOP / PEAK[type], counting
@@ -484,7 +496,33 @@ def time_main_path(dec, kernels, res, fwd_args, bwd_args, P):
             **decode_bound("backward", T, P, dec.K, G, False, "exact", outs)}
     res["hmm_backward"].update(per_output["posterior+threshold_sums"])
     res["hmm_backward"]["per_output"] = per_output
-    KP = bwd_args[3].shape[1]
+    times, err = time_block_reduce(kernels, T, bwd_args[3].shape[1], P)
+    res["hmm_block_reduce"].update(max_abs_err=err,
+                                   **times["major_minor_sums"],
+                                   per_output=times)
+    log(f"[kernels] median ms at T={T} P={P}: " + json.dumps(
+        {k: {m: v[m] for m in ("ms", "plain_ms", "per_output") if m in v}
+         for k, v in res.items()}))
+
+
+def block_reduce_in_order(part):
+    """part[0] + part[1] + ... in f64, b ascending, rounded once to f32: the
+    reduction kernel's arithmetic, one block at a time."""
+    acc = torch.zeros(part.shape[1:], dtype=torch.float64, device=part.device)
+    for b in range(part.shape[0]):
+        acc += part[b].double()
+    return acc.float()
+
+
+def time_block_reduce(kernels, T: int, KP: int, P: int) -> tuple:
+    """The block reduction of both sums' partials at a T-site window of P
+    pairs (P / 32 partials of [T, KP] and of [T, 3, KP], uniform on [0, 1)):
+    the kernel's output must equal block_reduce_in_order bit for bit and lie
+    within KERNEL_ATOL of the plain version; then the kernel, the plain
+    version and the one PyTorch call that computes the same sum
+    (``part.sum(0, dtype=torch.float64)``) timed on the same partials.
+    Returns ({sum: times and bound}, largest difference from the plain
+    version)."""
     nblk = -(-P // kernels.PAIRS_PER_BLOCK)
     gen = torch.Generator(device="cuda").manual_seed(0)
     err, times = 0.0, {}
@@ -492,6 +530,9 @@ def time_main_path(dec, kernels, res, fwd_args, bwd_args, P):
                         ("major_minor_sums", (nblk, T, 3, KP))):
         part = torch.rand(shape, generator=gen, device="cuda")
         got = kernels.block_reduce(part)
+        if not torch.equal(got, block_reduce_in_order(part)):
+            raise AssertionError(f"block reduction of {name} at T={T}, P={P}"
+                                 " differs from the in-order f64 sum")
         err = max(err, (got - kernels.block_reduce_reference(part))
                   .abs().max().item())
         # each partial read once, the sums written once; the adds (f64 in
@@ -505,14 +546,17 @@ def time_main_path(dec, kernels, res, fwd_args, bwd_args, P):
                 lambda: part.sum(0, dtype=torch.float64), 10),
             **bound(4 * (nblk + 1) * E, nblk * E, "f32")}
         del part, got
+    torch.cuda.empty_cache()
     if err > KERNEL_ATOL:
         raise AssertionError(f"block reduction disagrees: {err}")
-    res["hmm_block_reduce"].update(max_abs_err=err,
-                                   **times["major_minor_sums"],
-                                   per_output=times)
-    log(f"[kernels] median ms at T={T} P={P}: " + json.dumps(
-        {k: {m: v[m] for m in ("ms", "plain_ms", "per_output") if m in v}
-         for k, v in res.items()}))
+    return times, err
+
+
+def max_abs_diff(a, b, chunk: int = 512) -> float:
+    """max |a - b| in chunks of sites: at T=8192, P=8192 one alpha is 18 GiB,
+    and a whole difference and its abs would take two more."""
+    return max((a[t:t + chunk] - b[t:t + chunk]).abs().max().item()
+               for t in range(0, a.shape[0], chunk))
 
 
 def once_ms(fn):
@@ -531,7 +575,8 @@ def time_asmc_shape(dec, kernels, res, rng):
     chromosome in its 8,192-site window, posterior sums and major/minor
     sums, 8,192 pairs and the last batch's 3,137. Each against its plain
     version on the same inputs (alpha within KERNEL_ATOL, the sums within
-    KERNEL_ATOL per pair); median kernel times, one plain call each."""
+    KERNEL_ATOL per pair); median kernel times, one plain call each; at
+    8,192 pairs also the block reduction of both sums (time_block_reduce)."""
     t = dec.tables
     T = 8192
     H = t.hap_bits.shape[0]
@@ -546,7 +591,7 @@ def time_asmc_shape(dec, kernels, res, rng):
         alpha = kernels.forward(*fwd_args, split=t.split)
         plain_fwd, alpha_ref = once_ms(
             lambda: kernels.forward_reference(*fwd_args))
-        a_err = (alpha - alpha_ref).abs().max().item()
+        a_err = max_abs_diff(alpha, alpha_ref)
         del alpha_ref
         bwd_args = (t.Mb, em, obs, alpha, ops_b, mask, dec.K, 0, outs)
         got = kernels.backward_combine(*bwd_args)
@@ -582,6 +627,14 @@ def time_asmc_shape(dec, kernels, res, rng):
                                  asmc_shape_bound_ms=b["bound_ms"],
                                  asmc_shape_bound_by=b["bound_by"])
         del alpha, got, want
+        if P == 8192:
+            # the reduction where the ASMC scale leg launches it
+            times, err = time_block_reduce(kernels, T, t.KP, P)
+            row = res["hmm_block_reduce"]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["asmc_shape_per_output"] = times
+            log(f"[kernels] block reduction at T={T} P={P}, median ms: "
+                + json.dumps(times))
 
 
 # the fast ASMC scale leg's batch: the cap ASMC sets for a bf16 alpha at
@@ -844,7 +897,37 @@ def stored_rows_witness(alpha, chunk: int = 256) -> float:
     return err
 
 
-def alpha_wall_phase(kernels):
+def alpha_wall_sass(info) -> dict:
+    """ptxas' line and the SASS counts of the probe's backward kernels
+    (fastsmc_tpu_torch.probes.sass): each densest loop must run its
+    products on the tensor cores (HGMMA or HMMA), with fewer than
+    ALPHA_WALL_FFMA_MAX FFMA: the emission's 128 a lane and site, the
+    posterior sums' 32 and the divisions' refinement; a lane's 32 states x
+    2 pairs x 128 on the FP32 pipe would be 8,192."""
+    from fastsmc_tpu_torch.probes import sass
+    rows = {}
+    for fn, r in sass.sass_report(info.path, info.log,
+                                  "alpha_wall_backward").items():
+        every, norm = re.findall(r"Lb([01])E", fn)[:2]
+        loop = r["densest_loop"]
+        lds = {k: loop[k] for k in ("LDS", "LDS.64", "LDS.128", "LDSM")} \
+            if loop else None
+        tensor = loop and loop["HGMMA"] + loop["HMMA"]
+        log(f"[alpha-wall] backward kernel (every site {every}, block "
+            f"normalisation {norm}): ptxas {r['ptxas']}; densest loop "
+            f"{json.dumps(loop)}: HGMMA + HMMA {tensor} against shared loads "
+            f"{json.dumps(lds)}, FFMA {loop and loop['FFMA']}")
+        if not tensor or loop["FFMA"] >= ALPHA_WALL_FFMA_MAX:
+            raise AssertionError(f"the probe's backward ({fn}) does not run "
+                                 f"its products on the tensor cores: {loop}")
+        rows[f"every={every} norm_block={norm}"] = {
+            "ptxas": r["ptxas"], "densest_loop": loop}
+    if len(rows) != 4:
+        raise AssertionError(f"want 4 backward instantiations: {list(rows)}")
+    return rows
+
+
+def alpha_wall_phase(kernels, info):
     """Phase 13: the alpha-wall probe's two kernels. Each of the six
     variants against its plain version on the card at the probe's shape
     (P=8192) and with dead lanes (P=8187): alpha raw, within
@@ -864,6 +947,7 @@ def alpha_wall_phase(kernels):
     res = {f"alpha_wall_{k}": {"max_abs_err": 0.0, "max_rel_err": 0.0,
                                "variants": {}}
            for k in ("forward", "backward")}
+    res["alpha_wall_backward"]["sass"] = alpha_wall_sass(info)
     witness, carry_witness, carries = {}, {}, {}
     site = ALPHA_WALL_CARRY_SITE
     for P in (shape.P, 8187):
@@ -1081,12 +1165,12 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
     sides = {"parent": pk, "this": kernels}
     res = {}
 
-    def turns(what, call, n, check):
+    def turns(what, call, n, check, mods=sides):
         times = {"parent": [], "this": []}
         for r in range(reps):
             order = ("parent", "this") if r % 2 == 0 else ("this", "parent")
             for side in order:
-                times[side].append(median_ms(lambda: call(sides[side]), n))
+                times[side].append(median_ms(lambda: call(mods[side]), n))
         res[what] = times
         log(f"[a/b] {what}, median ms of {n} per turn, in turns: "
             f"{json.dumps(times)}; {check}")
@@ -1153,7 +1237,76 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
         turns(what, call, 3, "outputs equal bit for bit")
         del alpha
         torch.cuda.empty_cache()
+    ab_block_reduce(kernels, sides, decs["array", "exact"].tables.KP, turns)
+    ab_alpha_wall_backward(importlib.import_module(
+        "parent_port.probes.alpha_wall"), turns)
     return res
+
+
+def ab_block_reduce(kernels, sides, KP: int, turns) -> None:
+    """The block reduction of both sums' partials (uniform on [0, 1)) at
+    T=1024 and at the ASMC shape (T=8192), P=8192, through each side's
+    ``kernels.block_reduce``: the output must equal the parent's bit for
+    bit; times in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    P = 8192
+    nblk = -(-P // kernels.PAIRS_PER_BLOCK)
+    for T in (1024, 8192):
+        for name, shape in (("posterior_sums", (nblk, T, KP)),
+                            ("major_minor_sums", (nblk, T, 3, KP))):
+            part = torch.rand(shape, generator=gen, device="cuda")
+            a, b = (k.block_reduce(part) for k in sides.values())
+            what = f"block reduction ({name}), T={T} P={P}"
+            if not torch.equal(a, b):
+                raise AssertionError(f"a/b: {what} differs from the parent's "
+                                     "bits")
+            del a, b
+            turns(what, lambda k: k.block_reduce(part), 10,
+                  "output equal to the parent's bit for bit")
+            del part
+            torch.cuda.empty_cache()
+
+
+def ab_alpha_wall_backward(parent_aw, turns) -> None:
+    """The alpha-wall probe's three backward variants at the probe's shape,
+    through each side's ``probes.alpha_wall`` on the same inputs: each
+    side's output within ALPHA_WALL_BWD_ATOL and its raw carry after
+    ALPHA_WALL_CARRY_SITE within ALPHA_WALL_CARRY_RTOL of the plain
+    version's (the bits may differ: the sums run in another order); times
+    in turns."""
+    from fastsmc_tpu_torch.probes import alpha_wall as aw
+    shape = aw.Shape()
+    inp = aw.make_inputs(shape, DEVICE)
+    mods = {"parent": parent_aw, "this": aw}
+    site = ALPHA_WALL_CARRY_SITE
+    for name, (kind, _, _) in aw.VARIANTS.items():
+        if kind != "bwd":
+            continue
+        want, want_carry = aw.run_variant(name, inp, shape, plain=True,
+                                          carry_site=site)
+        errs = {}
+        for side, m in mods.items():
+            got, carry = m.run_variant(name, inp, shape, carry_site=site)
+            err = aw.max_errors(got, want)[0]
+            carry_rel = aw.max_errors(carry, want_carry)[1]
+            finite = bool(torch.isfinite(got).all())
+            errs[side] = {"out": err, "carry_rel": carry_rel}
+            if not finite or err > ALPHA_WALL_BWD_ATOL \
+                    or carry_rel > ALPHA_WALL_CARRY_RTOL:
+                raise AssertionError(f"a/b: alpha-wall {name} ({side}) "
+                                     f"against the plain version: {err} "
+                                     f"(gate {ALPHA_WALL_BWD_ATOL}), carry "
+                                     f"{carry_rel} (gate "
+                                     f"{ALPHA_WALL_CARRY_RTOL}), finite="
+                                     f"{finite}")
+            del got, carry
+        del want, want_carry
+        turns(f"alpha-wall {name}, T={shape.T} P={shape.P}",
+              lambda m: m.run_variant(name, inp, shape), 5,
+              "each side against the plain version (output abs, carry "
+              f"relative): {json.dumps(errs)}", mods)
+    del inp
+    torch.cuda.empty_cache()
 
 
 def forward_reference_f64(kernels, Mf, em, obs, isp, ops, mask, seq,
@@ -2523,6 +2676,7 @@ def main() -> int:
             scale_data = scale_panel()
         ab_fast_legs(args.ab_parent, ASMC, FastSMC, DecodingParams,
                      scale_data)
+        torch.cuda.empty_cache()
         if args.ab_only:
             batch_invariance(decs, kernels)
             log("[a/b] --ab-only: stopped after the A/B")
@@ -2548,7 +2702,7 @@ def main() -> int:
             per_leg[leg] = dict(counts)
 
     # 13. the alpha-wall probe
-    aw_rows, n = alpha_wall_phase(kernels)
+    aw_rows, n = alpha_wall_phase(kernels, info)
     kres.update(aw_rows)
     add(n, "alpha_wall_probe")
     torch.cuda.empty_cache()

@@ -2,16 +2,18 @@
 and ptxas' registers, spills and shared memory.
 
     python -m fastsmc_tpu_torch.probes.sass [--rpw 9] [--kernel hmm_forward]
+    python -m fastsmc_tpu_torch.probes.sass --rpw 0 --kernel alpha_wall_backward
 
 Builds the kernels' library (``engine/_build.py``; on a machine with the
 CUDA toolkit) unless it exists, dumps the SASS of every entry function
 whose name holds ``--kernel`` and the row count ``--rpw`` (KP = 8 x rpw;
-K=69 gives 9) with ``cuobjdump -sass``, and prints one JSON line: for each
-function, its instruction counts over the whole function and over its
+K=69 gives 9; 0 takes every function, as the probe's kernels need) with
+``cuobjdump -sass``, and prints one JSON line: for each function, its
+instruction counts over the whole function and over its
 densest loop (the backward branch whose body has the largest share of the
-product's opcode: HMMA in a function that has tensor-core products, FFMA
-otherwise), and ptxas' line for it when the library was built by this
-call.
+product's opcode: HGMMA (wgmma) or HMMA (mma.sync) in a function that has
+tensor-core products, FFMA otherwise), and ptxas' line for it when the
+library was built by this call.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import os
 import re
 import subprocess
 from collections import Counter
+from typing import Optional
 
-# opcodes counted; LDS alone is a 32-bit shared load
-OPCODES = ("FFMA", "HMMA", "LDS", "LDS.64", "LDS.128", "LDSM", "SHFL", "LDG",
-           "BAR", "SYNCS")
+# opcodes counted; LDS alone is a 32-bit shared load; LDL / STL are local
+# memory (spills)
+OPCODES = ("FFMA", "HMMA", "HGMMA", "LDS", "LDS.64", "LDS.128", "LDSM", "SHFL",
+           "LDG", "BAR", "SYNCS", "LDL", "STL")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"(.*?);")
 _TARGET = re.compile(r"(?:0x([0-9a-f]+)|`\(([^)]+)\))")
@@ -39,7 +43,8 @@ def _counts(ops) -> dict:
         if base == "LDS":
             width = next((w for w in (".64", ".128") if w in op), "")
             c["LDS" + width] += 1
-        elif base in ("BAR", "SYNCS", "FFMA", "HMMA", "LDSM", "SHFL", "LDG"):
+        elif base in ("BAR", "SYNCS", "FFMA", "HMMA", "HGMMA", "LDSM", "SHFL",
+                      "LDG", "LDL", "STL"):
             c[base] += 1
     return {k: c.get(k, 0) for k in OPCODES} | {"instructions": len(ops)}
 
@@ -53,7 +58,8 @@ def parse_sass(text: str) -> dict:
             return
         addr = [a for a, _, _ in body]
         ops = [o for _, o, _ in body]
-        product = "HMMA" if any(o.startswith("HMMA") for o in ops) else "FFMA"
+        product = next((p for p in ("HGMMA", "HMMA")
+                        if any(o.startswith(p) for o in ops)), "FFMA")
         best = None
         for i, (a, op, rest) in enumerate(body):
             if not op.startswith("BRA"):
@@ -105,7 +111,10 @@ def ptxas_lines(log: str) -> dict:
     return out
 
 
-def sass_report(lib_path, log: str, kernel: str, rpw: int) -> dict:
+def sass_report(lib_path, log: str, kernel: str,
+                rpw: Optional[int] = None) -> dict:
+    """{function: counts and ptxas' line} for the entry functions whose name
+    holds ``kernel`` (and, with ``rpw``, the row count ``rpw``)."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib_path)], check=True,
@@ -114,17 +123,20 @@ def sass_report(lib_path, log: str, kernel: str, rpw: int) -> dict:
     ptx = ptxas_lines(log)
     return {fn: dict(counts, ptxas=ptx.get(fn))
             for fn, counts in parse_sass(text).items()
-            if kernel in fn and tag in fn}
+            if kernel in fn and (rpw is None or tag in fn)}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--rpw", type=int, default=9)
+    ap.add_argument("--rpw", type=int, default=9,
+                    help="row count of the decode kernels' instantiations "
+                    "(0: every function, as for --kernel alpha_wall)")
     ap.add_argument("--kernel", default="hmm_forward")
     args = ap.parse_args(argv)
     from fastsmc_tpu_torch.engine import _build
     info = _build.build()
-    res = sass_report(info.path, info.log, args.kernel, args.rpw)
+    res = sass_report(info.path, info.log, args.kernel,
+                      args.rpw or None)
     print(json.dumps(res), flush=True)
     return res
 

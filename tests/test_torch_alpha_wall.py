@@ -6,9 +6,11 @@ The kernels of scripts/alpha_wall_probe.py are closures inside its main(),
 which refuses the CPU backend (:40), so they cannot be called from here.
 This file holds a verbatim copy of their bodies (make_fwd :74-108, make_bwd
 :137-155) and of their launches (:113-134, :157-181), with the shapes as
-parameters and one change: the backward kernel's carry starts at 1/KC at
-the first grid step (the probe leaves it uninitialised; interpret mode
-starts it as NaN). Both sides get the same inputs, made once with numpy;
+parameters, one change and one addition: the backward kernel's carry
+starts at 1/KC at the first grid step (the probe leaves it uninitialised;
+interpret mode starts it as NaN), and where asked it also writes its raw
+carry after one site to a second output, so that the plain version's
+carry is held to the JAX kernel's too. Both sides get the same inputs, made once with numpy;
 the bf16 operators go to JAX as the f32 values of the port's bf16 tensor,
 so that neither side rounds f64 to bf16 on its own.
 
@@ -135,10 +137,14 @@ def _pallas_probe(shape, M, em, obs, isp, ops_idx, alpha_in):
                            interpret=True)
         return f(ops_idx, *([M] * S), em, obs, isp)
 
-    def make_bwd(read_every, norm_block=False):
+    def make_bwd(read_every, norm_block=False, carry_site=None):
         def kernel(ops_ref, *rest):
             m = rest[:S]
-            em_ref, obs_ref, alpha_ref, out_ref, carry = rest[S:]
+            if carry_site is None:
+                em_ref, obs_ref, alpha_ref, out_ref, carry = rest[S:]
+            else:
+                em_ref, obs_ref, alpha_ref, out_ref, kept_ref, carry = \
+                    rest[S:]
             t = pl.program_id(0)
 
             # the one change: the probe never initialises its carry
@@ -153,6 +159,11 @@ def _pallas_probe(shape, M, em, obs, isp, ops_idx, alpha_in):
                     carry[:] = c
                 else:
                     carry[:] = c / jnp.sum(c, axis=0, keepdims=True)
+                if carry_site is not None and r == carry_site % S:
+                    # the copy's addition: the raw carry after carry_site
+                    @pl.when(nblk - 1 - t == carry_site // S)
+                    def _():
+                        kept_ref[:] = carry[:]
                 a = alpha_ref[r if read_every else 0].astype(jnp.float32)
                 post = a * (c[:KA] if norm_block else carry[:KA])
                 post = post / jnp.sum(post, axis=0, keepdims=True)
@@ -161,7 +172,7 @@ def _pallas_probe(shape, M, em, obs, isp, ops_idx, alpha_in):
                         jnp.int32, post.shape, 0) < 10, post, 0.0), axis=0)
         return kernel
 
-    def run_bwd(read_every, norm_block=False):
+    def run_bwd(read_every, norm_block=False, carry_site=None):
         def rev(t, *a):
             return (nblk - 1 - t, 0, 0)
         op_specs = [pl.BlockSpec(
@@ -176,13 +187,17 @@ def _pallas_probe(shape, M, em, obs, isp, ops_idx, alpha_in):
                 pl.BlockSpec((rows, KA, P),
                              rev if read_every else (lambda t, *a:
                                                      (nblk - 1 - t, 0, 0)))],
-            out_specs=pl.BlockSpec((S, 1, P), rev),
+            out_specs=pl.BlockSpec((S, 1, P), rev) if carry_site is None
+            else [pl.BlockSpec((S, 1, P), rev),
+                  pl.BlockSpec((KC, P), lambda t, *a: (0, 0))],
             scratch_shapes=[pltpu.VMEM((KC, P), jnp.float32)])
         src = alpha_in if read_every else alpha_small
-        f = pl.pallas_call(make_bwd(read_every, norm_block),
-                           grid_spec=grid,
-                           out_shape=jax.ShapeDtypeStruct(
-                               (T, 1, P), jnp.float32),
+        out_shape = jax.ShapeDtypeStruct((T, 1, P), jnp.float32)
+        if carry_site is not None:
+            out_shape = [out_shape,
+                         jax.ShapeDtypeStruct((KC, P), jnp.float32)]
+        f = pl.pallas_call(make_bwd(read_every, norm_block, carry_site),
+                           grid_spec=grid, out_shape=out_shape,
                            interpret=True)
         return f(ops_idx, *([M] * S), em, obs, src)
 
@@ -246,6 +261,32 @@ def test_plain_versions_match_pallas_interpret(name, shape_id):
         if shape.KA <= aw.POST_ROWS:
             np.testing.assert_allclose(got, 1.0, atol=1e-6)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
+
+
+# the card kernel's edges: a ragged last m-tile (P=37: 2 tiles of 16 and 5
+# pairs), the carry at the backward pass's first site (T-1), at a block end
+# (S: normalised under block normalisation) and at the last site (0)
+RAGGED = aw.Shape(KC=16, KA=12, S=4, P=37, T=32, G=5)
+
+
+@pytest.mark.parametrize("carry_site", [0, RAGGED.S, RAGGED.T - 1])
+@pytest.mark.parametrize("name", [n for n, v in aw.VARIANTS.items()
+                                  if v[0] == "bwd"])
+def test_backward_carry_matches_pallas_interpret_at_ragged_P(name,
+                                                             carry_site):
+    """The plain backward's output and raw carry after ``carry_site`` at
+    P=37 against the Pallas copy's, at the measure and gate of
+    test_plain_versions_match_pallas_interpret (relative, RTOL)."""
+    shape = RAGGED
+    inp, jx = _inputs(shape)
+    _, every, norm_block = aw.VARIANTS[name]
+    want, want_carry = (np.asarray(x) for x in _pallas_probe(shape, **jx)[
+        "bwd"](every, norm_block, carry_site))
+    got, carry = aw.run_variant(name, inp, shape, plain=True,
+                                carry_site=carry_site)
+    assert carry.shape == (shape.KC, shape.P) and (want_carry > 0).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(carry.numpy(), want_carry, rtol=RTOL, atol=0)
 
 
 def test_norm_block_changes_only_the_scale():

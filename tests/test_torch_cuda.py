@@ -234,6 +234,45 @@ def test_block_reduce_matches_plain(cuda):
                                rtol=2e-7, atol=0)
 
 
+def _in_order_sum(part):
+    """part[0] + part[1] + ... in f64, b ascending, rounded once to f32: the
+    reduction kernel's arithmetic, written out."""
+    acc = torch.zeros(part.shape[1:], dtype=torch.float64, device=part.device)
+    for b in range(part.shape[0]):
+        acc += part[b].double()
+    return acc.float()
+
+
+@pytest.mark.parametrize("E", [1, 5, 217, 64 * 3 * 72, 1024 * 3 * 72])
+@pytest.mark.parametrize("nblk", [1, 3, 256, 257])
+def test_block_reduce_equals_in_order_sum(cuda, nblk, E):
+    """The reduction gives the in-order f64 sum's bits, at ragged element
+    counts and at the major/minor sums' partials at T=64 and T=1024
+    (E = T * 3 * 72), for one block to 257."""
+    rng = np.random.default_rng(nblk * 1000 + E)
+    part = torch.tensor(rng.standard_normal((nblk, E), np.float32) * 1e3,
+                        device="cuda")
+    got = kernels.block_reduce(part)
+    assert torch.equal(got, _in_order_sum(part))
+
+
+@pytest.mark.parametrize("E,offset", [(5, 1), (217, 1), (64 * 3 * 72, 1),
+                                      (64 * 3 * 72, 2), (1024 * 3 * 72, 1)])
+def test_block_reduce_of_a_misaligned_view(cuda, E, offset):
+    """Contiguous views of a larger tensor give the in-order f64 sum's
+    bits: at a storage offset of 1-2 floats (a base that is not 16-byte
+    aligned), and ``part[1:]``."""
+    rng = np.random.default_rng(E + offset)
+    nblk = 257
+    big = torch.tensor(rng.random(nblk * E + offset + E, np.float32),
+                       device="cuda")
+    for part in (big[offset:offset + nblk * E].view(nblk, E),
+                 big[:(nblk + 1) * E].view(nblk + 1, E)[1:]):
+        assert part.is_contiguous()
+        got = kernels.block_reduce(part)
+        assert torch.equal(got, _in_order_sum(part))
+
+
 VARIANTS = [("sequence", "exact"), ("array", "fast"), ("array", "turbo"),
             ("sequence", "fast"), ("sequence", "turbo")]
 
@@ -501,6 +540,35 @@ def test_alpha_wall_kernels_match_plain(cuda, name):
                                                carry_site=1)
         assert alpha_wall.max_errors(carry, want_carry)[1] \
             <= ALPHA_WALL_CARRY_RTOL
+
+
+@pytest.mark.parametrize("KA", [10, 72, 128])
+@pytest.mark.parametrize("P", [5, 37, 40])
+@pytest.mark.parametrize("name", [n for n, v in alpha_wall.VARIANTS.items()
+                                  if v[0] == "bwd"])
+def test_alpha_wall_backward_at_its_edges(cuda, name, P, KA):
+    """The tensor-core backward against its plain version at the layout's
+    edges: a ragged last m-tile (P=5, 37; 40 = 2.5 tiles), KA below 16,
+    at its default and at KC, and the raw carry at the pass's first site
+    (T-1), inside a block (1), at a block end (S) and at the last site
+    (0): output within ALPHA_WALL_BWD_ATOL, carry within
+    ALPHA_WALL_CARRY_RTOL (relative); asking for the carry changes no
+    output bit."""
+    shape = alpha_wall.Shape(KC=128, KA=KA, S=8, P=P, T=64, G=5)
+    inp = alpha_wall.make_inputs(shape, "cuda", seed=P + KA)
+    out = alpha_wall.run_variant(name, inp, shape)
+    want = alpha_wall.run_variant(name, inp, shape, plain=True)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, want, rtol=0, atol=ALPHA_WALL_BWD_ATOL)
+    for site in (0, 1, shape.S, shape.T - 1):
+        got, carry = alpha_wall.run_variant(name, inp, shape,
+                                            carry_site=site)
+        _, want_carry = alpha_wall.run_variant(name, inp, shape, plain=True,
+                                               carry_site=site)
+        assert torch.equal(got, out)
+        assert carry.shape == (128, P)
+        assert alpha_wall.max_errors(carry, want_carry)[1] \
+            <= ALPHA_WALL_CARRY_RTOL, site
 
 
 def _packed_call(dec, inputs):
