@@ -67,11 +67,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      sequence-mode sums) and fast is within PROFILE_SUM_ATOL per pair of the
      sequence-mode golden.
  13. the alpha-wall probe (fastsmc_tpu_torch.probes.alpha_wall, run before
-     the legs of 4.-12.): the backward kernel's four instantiations' ptxas
-     lines and SASS counts (each densest loop must hold HGMMA or HMMA, and
-     fewer than ALPHA_WALL_FFMA_MAX FFMA); its six variants'
-     kernels against their plain versions at the probe's shape (T=4096,
-     P=8192, KC=128, KA=72, S=8)
+     the legs of 4.-12.): the forward and backward kernels' eight
+     instantiations' ptxas lines and SASS counts (each densest loop must
+     hold HGMMA or HMMA, and fewer than ALPHA_WALL_FFMA_MAX FFMA); its six
+     variants' kernels against their plain versions at the probe's shape
+     (T=4096, P=8192, KC=128, KA=72, S=8)
      and with P=8187 (raw alpha within ALPHA_WALL_FWD_RTOL, the backward
      output within ALPHA_WALL_BWD_ATOL, its raw carry after site 1 within
      ALPHA_WALL_CARRY_RTOL; two wrongly normalising forwards must miss the
@@ -162,8 +162,10 @@ kernels' densest loops as FFMA per shared load); then each forward branch
 against its plain version beside the plain version with f64 sums against
 it; the block reduction of both sums' partials at T=1024 and T=8192
 (P=8192), equal to the parent's bit for bit, times in turns; the
-alpha-wall probe's three backward variants at the probe's shape, each
-side within phase 13's gates of the plain version, times in turns; then
+alpha-wall probe's six variants at the probe's shape, three forward
+(alpha within ALPHA_WALL_FWD_RTOL of the plain version, finite) and three
+backward (phase 13's gates), each side against the plain version, five
+calls a side in turns; then
 the fast ASMC scale leg (in turns) and the fast FastSMC scale leg
 through each checkout's package, every output equal to the parent's byte
 for byte. --ab-only stops after that and the batch-invariance check.
@@ -261,8 +263,8 @@ ALPHA_WALL_BWD_ATOL = 2e-4
 # normalises at every site under block normalisation must miss it.
 ALPHA_WALL_CARRY_RTOL = 1.6e-2
 ALPHA_WALL_CARRY_SITE = 1
-# FFMA in the densest loop of the probe's backward above which its products
-# did not all go to the tensor cores (alpha_wall_sass)
+# FFMA in the densest loop of either of the probe's kernels above which its
+# products did not all go to the tensor cores (alpha_wall_sass)
 ALPHA_WALL_FFMA_MAX = 256
 # the card's published peaks (H100 SXM, dense, at 700 W): HBM bytes/s and
 # FLOP/s by operand type. A
@@ -898,32 +900,33 @@ def stored_rows_witness(alpha, chunk: int = 256) -> float:
 
 
 def alpha_wall_sass(info) -> dict:
-    """ptxas' line and the SASS counts of the probe's backward kernels
-    (fastsmc_tpu_torch.probes.sass): each densest loop must run its
+    """ptxas' line and the SASS counts of the probe's eight kernels, four
+    a pass (fastsmc_tpu_torch.probes.sass): each densest loop must run its
     products on the tensor cores (HGMMA or HMMA), with fewer than
     ALPHA_WALL_FFMA_MAX FFMA: the emission's 128 a lane and site, the
-    posterior sums' 32 and the divisions' refinement; a lane's 32 states x
-    2 pairs x 128 on the FP32 pipe would be 8,192."""
+    backward's posterior sums' 32 and the divisions' refinement; a lane's
+    32 states x 2 pairs x 128 on the FP32 pipe would be 8,192."""
     from fastsmc_tpu_torch.probes import sass
     rows = {}
-    for fn, r in sass.sass_report(info.path, info.log,
-                                  "alpha_wall_backward").items():
-        every, norm = re.findall(r"Lb([01])E", fn)[:2]
-        loop = r["densest_loop"]
-        lds = {k: loop[k] for k in ("LDS", "LDS.64", "LDS.128", "LDSM")} \
-            if loop else None
-        tensor = loop and loop["HGMMA"] + loop["HMMA"]
-        log(f"[alpha-wall] backward kernel (every site {every}, block "
-            f"normalisation {norm}): ptxas {r['ptxas']}; densest loop "
-            f"{json.dumps(loop)}: HGMMA + HMMA {tensor} against shared loads "
-            f"{json.dumps(lds)}, FFMA {loop and loop['FFMA']}")
-        if not tensor or loop["FFMA"] >= ALPHA_WALL_FFMA_MAX:
-            raise AssertionError(f"the probe's backward ({fn}) does not run "
-                                 f"its products on the tensor cores: {loop}")
-        rows[f"every={every} norm_block={norm}"] = {
-            "ptxas": r["ptxas"], "densest_loop": loop}
-    if len(rows) != 4:
-        raise AssertionError(f"want 4 backward instantiations: {list(rows)}")
+    for kernel in ("alpha_wall_forward", "alpha_wall_backward"):
+        for fn, r in sass.sass_report(info.path, info.log, kernel).items():
+            every, norm = re.findall(r"Lb([01])E", fn)[:2]
+            loop = r["densest_loop"]
+            lds = {k: loop[k] for k in ("LDS", "LDS.64", "LDS.128", "LDSM")} \
+                if loop else None
+            tensor = loop and loop["HGMMA"] + loop["HMMA"]
+            log(f"[alpha-wall] {kernel} (every site {every}, block "
+                f"normalisation {norm}): ptxas {r['ptxas']}; densest loop "
+                f"{json.dumps(loop)}: HGMMA + HMMA {tensor} against shared "
+                f"loads {json.dumps(lds)}, FFMA {loop and loop['FFMA']}")
+            if not tensor or loop["FFMA"] >= ALPHA_WALL_FFMA_MAX:
+                raise AssertionError(f"the probe's {kernel} ({fn}) does not "
+                                     "run its products on the tensor cores: "
+                                     f"{loop}")
+            rows[f"{kernel} every={every} norm_block={norm}"] = {
+                "ptxas": r["ptxas"], "densest_loop": loop}
+    if len(rows) != 8:
+        raise AssertionError(f"want 8 instantiations: {list(rows)}")
     return rows
 
 
@@ -947,7 +950,11 @@ def alpha_wall_phase(kernels, info):
     res = {f"alpha_wall_{k}": {"max_abs_err": 0.0, "max_rel_err": 0.0,
                                "variants": {}}
            for k in ("forward", "backward")}
-    res["alpha_wall_backward"]["sass"] = alpha_wall_sass(info)
+    counts = alpha_wall_sass(info)
+    for k in ("forward", "backward"):
+        res[f"alpha_wall_{k}"]["sass"] = {
+            n.split(" ", 1)[1]: v for n, v in counts.items()
+            if n.startswith(f"alpha_wall_{k} ")}
     witness, carry_witness, carries = {}, {}, {}
     site = ALPHA_WALL_CARRY_SITE
     for P in (shape.P, 8187):
@@ -1238,8 +1245,9 @@ def ab_parent(parent: str, decs, kernels, info, reps: int = 3) -> dict:
         del alpha
         torch.cuda.empty_cache()
     ab_block_reduce(kernels, sides, decs["array", "exact"].tables.KP, turns)
-    ab_alpha_wall_backward(importlib.import_module(
-        "parent_port.probes.alpha_wall"), turns)
+    parent_aw = importlib.import_module("parent_port.probes.alpha_wall")
+    ab_alpha_wall_forward(parent_aw, turns)
+    ab_alpha_wall_backward(parent_aw, turns)
     return res
 
 
@@ -1265,6 +1273,42 @@ def ab_block_reduce(kernels, sides, KP: int, turns) -> None:
                   "output equal to the parent's bit for bit")
             del part
             torch.cuda.empty_cache()
+
+
+def ab_alpha_wall_forward(parent_aw, turns) -> None:
+    """The alpha-wall probe's three forward variants at the probe's shape,
+    through each side's ``probes.alpha_wall`` on the same inputs: each
+    side's alpha within ALPHA_WALL_FWD_RTOL of the plain version's at every
+    element, relative, and finite (the bits may differ: the sums run in
+    another order); times in turns."""
+    from fastsmc_tpu_torch.probes import alpha_wall as aw
+    shape = aw.Shape()
+    inp = aw.make_inputs(shape, DEVICE)
+    mods = {"parent": parent_aw, "this": aw}
+    for name, (kind, _, _) in aw.VARIANTS.items():
+        if kind != "fwd":
+            continue
+        want = aw.run_variant(name, inp, shape, plain=True)
+        errs = {}
+        for side, m in mods.items():
+            got = m.run_variant(name, inp, shape)
+            rel = aw.max_errors(got, want)[1]
+            finite = all_finite(got)
+            errs[side] = rel
+            del got
+            if not finite or rel > ALPHA_WALL_FWD_RTOL:
+                raise AssertionError(f"a/b: alpha-wall {name} ({side}) "
+                                     f"against the plain version: relative "
+                                     f"{rel} (gate {ALPHA_WALL_FWD_RTOL}), "
+                                     f"finite={finite}")
+        del want
+        torch.cuda.empty_cache()
+        turns(f"alpha-wall {name}, T={shape.T} P={shape.P}",
+              lambda m: m.run_variant(name, inp, shape), 5,
+              "each side against the plain version (alpha relative): "
+              f"{json.dumps(errs)}", mods)
+    del inp
+    torch.cuda.empty_cache()
 
 
 def ab_alpha_wall_backward(parent_aw, turns) -> None:

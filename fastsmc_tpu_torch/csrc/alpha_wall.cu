@@ -8,8 +8,8 @@
 // launched at :175). Both run over T sites for P pairs with KC = 128 state
 // rows, an operator M[ops[t]] ([G][KC][KC] bf16) per site, the emission
 //   em(t)[k] = em[t][0][k] + em[t][1][k] * obs[t][0][p] + em[t][2][k] * obs[t][1][p]
-// and products bf16(M) @ bf16(v) accumulated in f32 (the forward: fmaf, j
-// ascending; the backward: on the tensor cores).
+// and products bf16(M) @ bf16(v) accumulated in f32, both on the tensor
+// cores (wgmma).
 // Forward (make_fwd):
 //   c_0 = isp * em(0);  c_t = (M[ops[t]] @ bf16(c_{t-1})) * em(t);
 //   each c_t is divided by its column sum, or with NORM_BLOCK only at the
@@ -33,19 +33,20 @@
 //
 // Bound on an H100: per pair and site a 128 x 128 product (16k FMA, 32k
 // FLOP) against 144 bytes of bf16 alpha written or read (18 when once per
-// block), so by FLOP/byte both passes sit above the memory line even with
-// alpha every site; with bf16 operands on the tensor cores (989 TFLOP/s)
-// the every-site variants are memory-bound (~1.5 ms a pass against ~1.1 ms
-// of products at T=4096, P=8192). The forward kernel does its products
-// with scalar fmaf (67 TFLOP/s f32 at most, 16.4 ms a pass): one block per
-// 32 pairs walks all T sites with the carry in registers, the site's
-// operator staged once in shared memory as f32 (64 KB) and read by each
-// warp as float4 broadcasts (four columns a load), the product's operand
-// in shared memory as f32 values of bf16. Its alpha traffic is coalesced
-// 64-byte warp stores per state row; with the products this slow it should
-// hide behind them. Later work: the forward's products on the tensor cores
-// as the backward kernel runs them (its own note, below), after which the
-// alpha traffic is what is left.
+// block). At T=4096, KA=72, P=8192 alpha is 4.83 GB a pass (1.44 ms at
+// 3.35 TB/s), the products 1.10 TFLOP (1.11 ms at 989 TFLOP/s bf16; 16.4 ms
+// on the FP32 pipe, which is why both kernels leave it): the every-site
+// variants are memory-bound, the once-a-block ones bound by their products.
+// Measured, neither sets a pass: the per-site chain of one warpgroup a block
+// does (8 wgmma, then the epilogue on the FP32 pipe that makes the next
+// site's operand), one warp a scheduler at P=8192: 4.5-5.9 ms a forward
+// pass, 7.4 a backward one (PERF.md §6). Both kernels share one design
+// (the backward's note, below, gives it in full): a warpgroup owns 64 pairs
+// with the carry in wgmma's accumulator layout, a producer warp stages each
+// site's operator by TMA and its emission rows sites ahead (the backward
+// also its alpha tile, the forward the block's observations), and every sum
+// over states is the thread's own values, then its quad: no block barrier
+// sits on a site's chain.
 #include <cuda.h>
 
 #include "hmm_common.cuh"
@@ -54,105 +55,7 @@ namespace fastsmc {
 namespace {
 
 constexpr int kStates = 128;                   // KC
-constexpr int kRows = kStates / kWarps;        // rows a warp owns (RPW)
 constexpr int kPostRows = 10;                  // rows summed into out
-
-// acc[i] = sum_j sM[k_i][j] * sV[j][lane], j ascending, for this thread's
-// rows k_i = warp + kWarps * i: the operator row is read as float4
-// broadcasts, four columns at a time.
-__device__ __forceinline__ void product(float (&acc)[kRows],
-                                        const float* __restrict__ sM,
-                                        const float* __restrict__ sV, int lane,
-                                        int warp) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-#pragma unroll 2
-  for (int j = 0; j < kStates; j += 4) {
-    const float v0 = sV[(j + 0) * kPairs + lane];
-    const float v1 = sV[(j + 1) * kPairs + lane];
-    const float v2 = sV[(j + 2) * kPairs + lane];
-    const float v3 = sV[(j + 3) * kPairs + lane];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float4 m = *reinterpret_cast<const float4*>(
-          sM + (warp + kWarps * i) * kStates + j);
-      acc[i] = fmaf(m.x, v0, acc[i]);
-      acc[i] = fmaf(m.y, v1, acc[i]);
-      acc[i] = fmaf(m.z, v2, acc[i]);
-      acc[i] = fmaf(m.w, v3, acc[i]);
-    }
-  }
-}
-
-// Shared memory: the staged operator [KC][KC], the product's operand
-// [KC][kPairs] and three [kWarps][kPairs] reduction buffers.
-constexpr size_t kShared =
-    sizeof(float) * (kStates * kStates + kStates * kPairs + 3 * kWarps * kPairs);
-
-template <bool STORE_EVERY, bool NORM_BLOCK>
-__global__ void __launch_bounds__(kThreads)
-    alpha_wall_forward_kernel(const __nv_bfloat16* __restrict__ M, int G,
-                              const float* __restrict__ em,   // [T][3][KC]
-                              const float* __restrict__ obs,  // [T][2][P]
-                              const float* __restrict__ isp,  // [KC]
-                              const int* __restrict__ ops,    // [T]
-                              __nv_bfloat16* __restrict__ alpha,  // [rows][KA][P]
-                              int T, int P, int KA, int S) {
-  extern __shared__ float4 smem4[];
-  float* sM = reinterpret_cast<float*>(smem4);
-  float* sC = sM + kStates * kStates;
-  float* sRed = sC + kStates * kPairs;
-  const int lane = threadIdx.x % kPairs;
-  const int warp = threadIdx.x / kPairs;
-  const int p = blockIdx.x * kPairs + lane;
-  const bool live = p < P;
-  const size_t Pz = static_cast<size_t>(P);
-  const float* Mf = reinterpret_cast<const float*>(M);
-
-  float c[kRows];
-  for (int t = 0; t < T; ++t) {
-    const float* em_t = em + static_cast<size_t>(t) * 3 * kStates;
-    const float oz = live ? obs[(2 * static_cast<size_t>(t)) * Pz + p] : 0.f;
-    const float oh = live ? obs[(2 * static_cast<size_t>(t) + 1) * Pz + p] : 0.f;
-    if (t == 0) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int k = warp + kWarps * i;
-        c[i] = isp[k] * emission(em_t, k, kStates, oz, oh);
-      }
-    } else {
-      stage_operator_bf16(sM, Mf, true, ops[t], G, kStates);
-      __syncthreads();  // operator and operand visible
-      float acc[kRows];
-      product(acc, sM, sC, lane, warp);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        c[i] = acc[i] * emission(em_t, warp + kWarps * i, kStates, oz, oh);
-    }
-    if (!NORM_BLOCK || t % S == S - 1) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) part += c[i];
-      const float s = column_sum(sRed, part, lane, warp);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) c[i] = c[i] / s;
-    } else {
-      __syncthreads();  // every warp's reads of sM and sC done
-    }
-    if (STORE_EVERY || t % S == S - 1) {
-      __nv_bfloat16* a =
-          alpha + static_cast<size_t>(STORE_EVERY ? t : t / S) * KA * Pz;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int k = warp + kWarps * i;
-        if (live && k < KA) a[k * Pz + p] = __float2bfloat16_rn(c[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      sC[(warp + kWarps * i) * kPairs + lane] = round_bf16(c[i]);
-  }
-}
 
 // The backward kernel on the tensor cores.
 //
@@ -175,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
 //   - B is M[ops[r]] as stored, row-major [n][k] (K-major): a producer warp
 //     copies it by two TMA tile loads a site (k 0-63 and 64-127, 128B
 //     swizzle: the canonical layout that wgmma reads, without a bank
-//     conflict) into a ring of slots up to kBwdMaxRing sites ahead, with the
+//     conflict) into a ring of slots up to kMaxRing sites ahead, with the
 //     site's emission rows and the block's alpha tile [KA][64 pairs] by
 //     16-byte cp.async; full / empty mbarriers, as in hmm_forward.cu's mma
 //     kernel. Alpha thus arrives sites ahead of its use, and its read costs
@@ -196,19 +99,31 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kNTiles = kStates / 8;                  // n-tiles of 8 states
 constexpr int kKSteps = kStates / 16;                 // k-steps of 16 states
-constexpr int kBwdWarps = 4;      // consumer warps a block: one warpgroup
-constexpr int kBwdPairs = 16 * kBwdWarps;             // pairs a block
+// both kernels' block: one warpgroup of consumer warps (16 pairs each), then
+// one producer warp
+constexpr int kWgWarps = 4;
+constexpr int kWgPairs = 16 * kWgWarps;               // pairs a block
 constexpr int kHalfBytes = kStates * 128;             // 64 k of 128 rows, bf16
 constexpr int kOpBytes = 2 * kHalfBytes;              // the operator, 32 KB
 constexpr int kEmBytes = 3 * kStates * sizeof(float); // the site's emission rows
 // a row of a slot's alpha tile (64 pairs, bf16), padded by 16 bytes so that
 // the rows 2 apart that a quad reads start 8 banks apart
-constexpr int kAlphaRow = 2 * kBwdPairs + 16;
+constexpr int kAlphaRow = 2 * kWgPairs + 16;
 // a slot: the operator (1024-byte aligned for the swizzle), the emission
-// rows and the alpha tile's 128 rows (those from KA on stay 0)
-constexpr int kSlotBytes =
-    (kOpBytes + kEmBytes + kStates * kAlphaRow + 1023) / 1024 * 1024;
-constexpr int kBwdMaxRing = 4;
+// rows and `tile` bytes more, rounded up to 1024 bytes
+constexpr int slot_bytes(int tile) {
+  return (kOpBytes + kEmBytes + tile + 1023) / 1024 * 1024;
+}
+// the backward's slot also holds alpha's tile, 128 rows (those from KA on
+// stay 0); the forward's the block's observations, two rows of 64 pairs
+constexpr int kObsBytes = 2 * kWgPairs * sizeof(float);
+constexpr int kBwdSlotBytes = slot_bytes(kStates * kAlphaRow);
+constexpr int kFwdSlotBytes = slot_bytes(kObsBytes);   // 35 KB
+// the forward's store tiles: two a consumer warp, [KC][16 pairs] bf16 each
+constexpr int kTileRow = 16 * sizeof(__nv_bfloat16);
+constexpr int kTileBytes = kStates * kTileRow;
+constexpr int kFwdTiles = 2 * kWgWarps * kTileBytes;  // 32 KB
+constexpr int kMaxRing = 4;
 constexpr size_t kMaxShared = 232448;  // dynamic shared memory a block may take
 
 // Two floats rounded to bf16 (nearest even) in one word, `lo` in the low
@@ -272,6 +187,19 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One TMA store of the shared tile `src` to the box at (column c0, row c1)
+// of `map`, in a bulk group of its own.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
 // The barrier expects `bytes` more (one arrival).
 __device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
@@ -333,25 +261,39 @@ __device__ __forceinline__ Obs load_obs(const float* __restrict__ obs, int t,
              lb ? o[P + pb] : 0.f};
 }
 
-// The producer warp's staging of site r into slot `e`: the operator by two
-// TMA tile loads (lane 0), the emission rows, and alpha's KA rows of the
-// block's pairs from p0 (16-byte copies where `vec`: P % 8 == 0; element by
-// element otherwise, dead pairs 0). Ends with its lane's two arrivals on
-// `full` (and lane 0's third, which expects the operator's bytes).
-template <bool READ_EVERY>
-__device__ __forceinline__ void stage_site(
-    char* e, uint64_t* full, const CUtensorMap* map, int op,
-    const float* __restrict__ em, const __nv_bfloat16* __restrict__ alpha,
-    int r, int S, int P, int KA, int p0, bool vec, int lane) {
+// The producer warp's staging of site r's operator `op` and emission rows
+// into slot `e`: the operator by two TMA tile loads (lane 0, whose arrival
+// on `full` expects their bytes; where `op` < 0 no operator, and the arrival
+// expects none), the emission rows by 16-byte cp.async.
+__device__ __forceinline__ void stage_operator_em(char* e, uint64_t* full,
+                                                  const CUtensorMap* map,
+                                                  int op,
+                                                  const float* __restrict__ em,
+                                                  int r, int lane) {
   if (lane == 0) {
-    expect_bytes(full, kOpBytes);
-    tma_tile(e, map, 0, op * kStates, full);
-    tma_tile(e + kHalfBytes, map, kStates / 2, op * kStates, full);
+    expect_bytes(full, op < 0 ? 0 : kOpBytes);
+    if (op >= 0) {
+      tma_tile(e, map, 0, op * kStates, full);
+      tma_tile(e + kHalfBytes, map, kStates / 2, op * kStates, full);
+    }
   }
   const char* em_r =
       reinterpret_cast<const char*>(em + static_cast<size_t>(r) * 3 * kStates);
   for (int i = lane; i < kEmBytes / 16; i += 32)
     cp_async16(e + kOpBytes + 16 * i, em_r + 16 * i);
+}
+
+// The backward's staging of site r into slot `e`: the operator and the
+// emission rows, then alpha's KA rows of the block's pairs from p0 (16-byte
+// copies where `vec`: P % 8 == 0; element by element otherwise, dead pairs
+// 0). Ends with its lane's two arrivals on `full` (and lane 0's third, which
+// expects the operator's bytes).
+template <bool READ_EVERY>
+__device__ __forceinline__ void stage_site(
+    char* e, uint64_t* full, const CUtensorMap* map, int op,
+    const float* __restrict__ em, const __nv_bfloat16* __restrict__ alpha,
+    int r, int S, int P, int KA, int p0, bool vec, int lane) {
+  stage_operator_em(e, full, map, op, em, r, lane);
   char* at = e + kOpBytes + kEmBytes;
   const unsigned short* a_r = reinterpret_cast<const unsigned short*>(alpha) +
                               static_cast<size_t>(READ_EVERY ? r : r / S) * KA * P + p0;
@@ -365,33 +307,49 @@ __device__ __forceinline__ void stage_site(
     }
   } else {
     // 16 elements a lane in flight, then their stores
-    const int total = KA * kBwdPairs;
+    const int total = KA * kWgPairs;
     for (int i0 = lane; i0 < total; i0 += 32 * 16) {
       unsigned short v[16];
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
-        const int i = i0 + 32 * u, j = i % kBwdPairs;
+        const int i = i0 + 32 * u, j = i % kWgPairs;
         v[u] = i < total && p0 + j < P
-                   ? __ldg(a_r + static_cast<size_t>(i / kBwdPairs) * P + j)
+                   ? __ldg(a_r + static_cast<size_t>(i / kWgPairs) * P + j)
                    : static_cast<unsigned short>(0);
       }
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
         const int i = i0 + 32 * u;
         if (i < total)
-          *reinterpret_cast<unsigned short*>(at + (i / kBwdPairs) * kAlphaRow +
-                                             2 * (i % kBwdPairs)) = v[u];
+          *reinterpret_cast<unsigned short*>(at + (i / kWgPairs) * kAlphaRow +
+                                             2 * (i % kWgPairs)) = v[u];
       }
     }
   }
   arrive_after_copies(full);
 }
 
-// The block: one warpgroup of kBwdWarps consumer warps (16 pairs each),
+// Thread 0 initialises the ring's barriers: a slot is full after the
+// operator's expected bytes and two arrivals a producer lane, empty after
+// one arrival a consumer thread.
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
+                                          int ring) {
+  if (threadIdx.x != 0) return;
+  for (int s = 0; s < ring; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_u32(&full[s])), "r"(1 + 64) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_u32(&empty[s])), "r"(32 * kWgWarps)
+                 : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The block: one warpgroup of kWgWarps consumer warps (16 pairs each),
 // then one producer warp. Shared memory, from a 1024-byte aligned base:
-// `ring` slots of kSlotBytes, then `ring` full and `ring` empty mbarriers.
+// `ring` slots of kBwdSlotBytes, then `ring` full and `ring` empty mbarriers.
 template <bool READ_EVERY, bool NORM_BLOCK>
-__global__ void __launch_bounds__((kBwdWarps + 1) * 32)
+__global__ void __launch_bounds__((kWgWarps + 1) * 32)
     alpha_wall_backward_kernel(const __grid_constant__ CUtensorMap map,
                                int G,
                                const float* __restrict__ em,   // [T][3][KC]
@@ -405,31 +363,21 @@ __global__ void __launch_bounds__((kBwdWarps + 1) * 32)
   extern __shared__ float4 smem4[];
   char* slots = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(slots + ring * kSlotBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(slots + ring * kBwdSlotBytes);
   uint64_t* empty = full + ring;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int p0 = blockIdx.x * kBwdPairs;
+  const int p0 = blockIdx.x * kWgPairs;
 
   // rows KA .. KC - 1 of every slot's alpha tile are never staged: 0
   const int zero_words = (kStates - KA) * kAlphaRow / 4;
   for (int i = threadIdx.x; i < ring * zero_words; i += blockDim.x)
-    reinterpret_cast<uint32_t*>(slots + (i / zero_words) * kSlotBytes +
+    reinterpret_cast<uint32_t*>(slots + (i / zero_words) * kBwdSlotBytes +
                                 kOpBytes + kEmBytes + KA * kAlphaRow)[i % zero_words] = 0u;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < ring; ++s) {
-      // the operator's expected bytes, and two arrivals a producer lane
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                   :: "r"(smem_u32(&full[s])), "r"(1 + 64) : "memory");
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                   :: "r"(smem_u32(&empty[s])), "r"(32 * kBwdWarps)
-                   : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  init_ring(full, empty, ring);
   __syncthreads();  // barriers initialised; the only block-wide barrier
 
-  if (warp == kBwdWarps) {
+  if (warp == kWgWarps) {
     // producer: site T-1-n into slot n % ring once every consumer has
     // released that slot's previous site
     for (int n = 0; n < T; ++n) {
@@ -439,7 +387,7 @@ __global__ void __launch_bounds__((kBwdWarps + 1) * 32)
       const int r = T - 1 - n;
       const int op = ops[r];
       if (op < 0 || op >= G) __trap();  // a caller bug: stop the kernel
-      stage_site<READ_EVERY>(slots + s * kSlotBytes, &full[s], &map, op, em,
+      stage_site<READ_EVERY>(slots + s * kBwdSlotBytes, &full[s], &map, op, em,
                              alpha, r, S, P, KA, p0, vec, lane);
     }
     return;
@@ -469,7 +417,7 @@ __global__ void __launch_bounds__((kBwdWarps + 1) * 32)
 
     const int s = n % ring;
     wait_phase(&full[s], (n / ring) & 1);
-    const char* e = slots + s * kSlotBytes;
+    const char* e = slots + s * kBwdSlotBytes;
     const float* em_r = reinterpret_cast<const float*>(e + kOpBytes);
     // c = bf16(carry * em(r)) @ M^T: k-step kk's A fragment (n-tiles 2 kk,
     // 2 kk + 1 of the carry times the emission, rounded to bf16) is made
@@ -578,17 +526,240 @@ __global__ void __launch_bounds__((kBwdWarps + 1) * 32)
   }
 }
 
+// The forward kernel on the tensor cores.
+//
+// Replaces `make_fwd` (scripts/alpha_wall_probe.py:74-108). Bound on an
+// H100: alpha's write, T x KA x P bf16 (4.83 GB at T=4096, KA=72, P=8192:
+// 1.44 ms at 3.35 TB/s; 1.53 ms with the other inputs), against 1.10 TFLOP
+// of products (1.11 ms at 989 TFLOP/s bf16). The design is the backward's,
+// with alpha written instead of read:
+//   - the block's warpgroup owns 64 pairs, thread (g, q) states 8 nt + 2 q +
+//     h of pairs 2 g and 2 g + 1 of its warp's 16, in wgmma's accumulator
+//     layout. The next site's A is bf16(c), packed into all 8 k-steps'
+//     fragments at the end of this site, so a site issues its 8 wgmma back
+//     to back: the carry never leaves the registers;
+//   - the producer warp stages each site's operator by TMA, its emission
+//     rows and the block's two observation rows by cp.async into a ring of
+//     35 KB slots, sites ahead (site 0: no operator). So a consumer touches
+//     no global memory on a site's chain: with its observations loaded from
+//     global memory a site ahead, the proxy fence before each alpha store (a
+//     MEMBAR in SASS) waited for those loads, and a pass's time moved by
+//     milliseconds with where the compiler put them;
+//   - the epilogue runs in registers: the emission, the column sum (the
+//     thread's 32 values as a tree, then its quad; only at the sites that
+//     normalise) and the normalisation;
+//   - alpha: each warp writes its rows k < KA into a shared tile [KA][16
+//     pairs], one word a (nt, h) (pairs 2 g and 2 g + 1 are adjacent), and
+//     one lane stores the tile by one TMA store; two tiles a warp, so the
+//     wait for a tile's read falls a store later. Stores straight from the
+//     registers (one word a thread and (nt, h), four whole 32-byte sectors a
+//     warp's store) cost 4.0 ms a pass at T=4096, P=8192, the TMA store
+//     0.9-1.4 (PERF.md §6). They remain where TMA cannot store: P % 8 != 0 (rows not
+//     16-byte aligned) or a misaligned base; a word where it is 4-byte
+//     aligned, element by element otherwise, dead pairs skipped.
+// The column is normalised as c * (1 / s), as the backward does, not c / s
+// as the plain version: the two differ by one f32 rounding (2^-24
+// relative), far below the bf16 step the gate is set by, and two divisions
+// a thread take the place of 64. The tensor cores add in another order than
+// the plain version's and truncate, so alpha stays within bf16 level of it.
 template <bool STORE_EVERY, bool NORM_BLOCK>
-int launch_forward(const __nv_bfloat16* M, int G, const float* em,
-                   const float* obs, const float* isp, const int* ops,
-                   __nv_bfloat16* alpha, int T, int P, int KA, int S,
-                   cudaStream_t stream) {
-  auto* kernel = alpha_wall_forward_kernel<STORE_EVERY, NORM_BLOCK>;
-  const int rc = allow_shared(kernel, kShared);
-  if (rc != 0) return rc;
-  kernel<<<(P + kPairs - 1) / kPairs, kThreads, kShared, stream>>>(
-      M, G, em, obs, isp, ops, alpha, T, P, KA, S);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__((kWgWarps + 1) * 32)
+    alpha_wall_forward_kernel(const __grid_constant__ CUtensorMap map,
+                              const __grid_constant__ CUtensorMap amap, int G,
+                              const float* __restrict__ em,   // [T][3][KC]
+                              const float* __restrict__ obs,  // [T][2][P]
+                              const float* __restrict__ isp,  // [KC]
+                              const int* __restrict__ ops,    // [T]
+                              __nv_bfloat16* __restrict__ alpha,  // [rows][KA][P]
+                              int T, int P, int KA, int S, int ring,
+                              bool obs_vec, bool tma_alpha) {
+  extern __shared__ float4 smem4[];
+  // the 1024-byte aligned base as an offset from smem4, so that the
+  // compiler keeps the shared address space (LDS / STS, not generic loads)
+  char* slots = reinterpret_cast<char*>(smem4) +
+                ((1024 - (smem_u32(smem4) & 1023)) & 1023);
+  char* tiles = slots + ring * kFwdSlotBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kFwdTiles);
+  uint64_t* empty = full + ring;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int p0 = blockIdx.x * kWgPairs;
+  init_ring(full, empty, ring);
+  __syncthreads();  // barriers initialised; the only block-wide barrier
+
+  if (warp == kWgWarps) {
+    // producer: site n into slot n % ring once every consumer has released
+    // that slot's previous site; site 0 has no operator
+    for (int n = 0; n < T; ++n) {
+      const int s = n % ring;
+      const int use = n / ring;
+      if (use > 0) wait_phase(&empty[s], (use - 1) & 1);
+      const int op = n > 0 ? ops[n] : -1;
+      if (n > 0 && (op < 0 || op >= G)) __trap();  // a caller bug
+      char* e = slots + s * kFwdSlotBytes;
+      stage_operator_em(e, &full[s], &map, op, em, n, lane);
+      // the block's observations [2][64 pairs]: 16-byte copies where
+      // obs_vec (P % 4 == 0), element by element otherwise, pairs past P 0
+      const float* o_n = obs + 2 * static_cast<size_t>(n) * P + p0;
+      float* so = reinterpret_cast<float*>(e + kOpBytes + kEmBytes);
+      if (obs_vec) {
+        const int row = lane / 16, ch = lane % 16;
+        if (p0 + 4 * ch < P)
+          cp_async16(so + row * kWgPairs + 4 * ch,
+                     o_n + row * static_cast<size_t>(P) + 4 * ch);
+      } else {
+        for (int i = lane; i < 2 * kWgPairs; i += 32) {
+          const int row = i / kWgPairs, j = i % kWgPairs;
+          so[i] = p0 + j < P ? __ldg(o_n + row * static_cast<size_t>(P) + j) : 0.f;
+        }
+      }
+      arrive_after_copies(&full[s]);
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int ja = 16 * warp + 2 * g;       // pair a in the block: m-tile row g
+  const int pa = p0 + ja;
+  const int pb = pa + 1;                  // m-tile row g + 8
+  const bool la = pa < P, lb = pb < P;
+  const size_t Pz = static_cast<size_t>(P);
+  char* tile = tiles + warp * 2 * kTileBytes;  // the warp's two store tiles
+
+  // c_t and the product's accumulators: [nt][h] pair a, [nt][2 + h] pair b;
+  // site 0 starts from isp. A: the next site's operand, bf16(c)
+  float c[kNTiles][4];
+  uint32_t A[kKSteps][4];
+#pragma unroll
+  for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) c[nt][h] = c[nt][2 + h] = isp[8 * nt + 2 * q + h];
+  int tb = 0;      // t % S
+  int stores = 0;  // TMA stores of this warp
+  for (int t = 0; t < T; ++t) {
+    const bool block_end = tb == S - 1;
+    tb = block_end ? 0 : tb + 1;
+    const int s = t % ring;
+    wait_phase(&full[s], (t / ring) & 1);
+    const char* e = slots + s * kFwdSlotBytes;
+    const float* so = reinterpret_cast<const float*>(e + kOpBytes + kEmBytes);
+    const Obs o{la ? so[ja] : 0.f, la ? so[kWgPairs + ja] : 0.f,
+                lb ? so[ja + 1] : 0.f, lb ? so[kWgPairs + ja + 1] : 0.f};
+    if (t > 0) {
+      // c = bf16(c_{t-1}) @ M^T: k-steps 0-3 read the operator's first
+      // 64-column half, 4-7 its second, 32 bytes a step
+      const uint32_t op_addr = smem_u32(e);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        wgmma_k16(c, A[kk],
+                  sw128_desc(op_addr + (kk / 4) * kHalfBytes + 32 * (kk % 4)),
+                  kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      // the A fragments and accumulators were in the wgmma's hands until
+      // here: keep the compiler from reusing or reading them earlier
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        asm volatile("" : "+r"(A[kk][0]), "+r"(A[kk][1]), "+r"(A[kk][2]),
+                     "+r"(A[kk][3]) :: "memory");
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt)
+        asm volatile("" : "+f"(c[nt][0]), "+f"(c[nt][1]), "+f"(c[nt][2]),
+                     "+f"(c[nt][3]) :: "memory");
+    }
+
+    // c = c * em(t)
+    const float* em_t = reinterpret_cast<const float*>(e + kOpBytes);
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+      const int k = 8 * nt + 2 * q;
+      const float2 e0 = *reinterpret_cast<const float2*>(em_t + k);
+      const float2 e1 = *reinterpret_cast<const float2*>(em_t + kStates + k);
+      const float2 e2 = *reinterpret_cast<const float2*>(em_t + 2 * kStates + k);
+      c[nt][0] = __fmul_rn(c[nt][0], emission_of(e0.x, e1.x, e2.x, o.oza, o.oha));
+      c[nt][1] = __fmul_rn(c[nt][1], emission_of(e0.y, e1.y, e2.y, o.oza, o.oha));
+      c[nt][2] = __fmul_rn(c[nt][2], emission_of(e0.x, e1.x, e2.x, o.ozb, o.ohb));
+      c[nt][3] = __fmul_rn(c[nt][3], emission_of(e0.y, e1.y, e2.y, o.ozb, o.ohb));
+    }
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                 :: "r"(smem_u32(&empty[s])) : "memory");
+
+    // c divided by its column sum, or with NORM_BLOCK only at each block's
+    // last site
+    if (!NORM_BLOCK || block_end) {
+      float sa[kNTiles], sb[kNTiles];
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) {
+        sa[nt] = __fadd_rn(c[nt][0], c[nt][1]);
+        sb[nt] = __fadd_rn(c[nt][2], c[nt][3]);
+      }
+      const float ia = 1.f / quad_sum(tree_sum(sa));
+      const float ib = 1.f / quad_sum(tree_sum(sb));
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) {
+        c[nt][0] = __fmul_rn(c[nt][0], ia);
+        c[nt][1] = __fmul_rn(c[nt][1], ia);
+        c[nt][2] = __fmul_rn(c[nt][2], ib);
+        c[nt][3] = __fmul_rn(c[nt][3], ib);
+      }
+    }
+
+    // alpha's rows k < KA of pairs a and b (one word)
+    if (STORE_EVERY || block_end) {
+      const int row0 = (STORE_EVERY ? t : t / S) * KA;
+      if (tma_alpha) {
+        char* buf = tile + (stores & 1) * kTileBytes;
+        // the store two before this one read this tile
+        if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+        __syncwarp();
+#pragma unroll
+        for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = 8 * nt + 2 * q + h;
+            if (k < KA)
+              *reinterpret_cast<uint32_t*>(buf + k * kTileRow + 4 * g) =
+                  pack_bf16(c[nt][h], c[nt][2 + h]);
+          }
+        // the tile's writes visible to the TMA unit, then the warp's store
+        // (the box clips pairs past P)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncwarp();
+        if (lane == 0) tma_store(&amap, buf, p0 + 16 * warp, row0);
+        ++stores;
+      } else if (la) {
+        __nv_bfloat16* a = alpha + static_cast<size_t>(row0) * Pz + pa;
+#pragma unroll
+        for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = 8 * nt + 2 * q + h;
+            if (k >= KA) continue;
+            __nv_bfloat16* d = a + k * Pz;
+            if (lb && (reinterpret_cast<uintptr_t>(d) & 3) == 0) {
+              *reinterpret_cast<uint32_t*>(d) = pack_bf16(c[nt][h], c[nt][2 + h]);
+            } else {
+              d[0] = __float2bfloat16_rn(c[nt][h]);
+              if (lb) d[1] = __float2bfloat16_rn(c[nt][2 + h]);
+            }
+          }
+      }
+    }
+
+    // the next site's A: k-step kk holds n-tiles 2 kk and 2 kk + 1
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int nt = 2 * kk + u;
+        A[kk][2 * u] = pack_bf16(c[nt][0], c[nt][1]);
+        A[kk][2 * u + 1] = pack_bf16(c[nt][2], c[nt][3]);
+      }
+  }
+  // the stores done before the block's shared memory goes
+  if (lane == 0 && stores > 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime's entry-point query
@@ -607,35 +778,87 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The operators [G][KC][KC] bf16 as a 2-D map of G KC rows, read in 64 x KC
-// boxes (half a row of KC rows) with the 128B swizzle.
-int operator_map(CUtensorMap* map, const __nv_bfloat16* M, int G) {
+// A 2-D map of a bf16 matrix of `rows` rows of `cols` values, read or
+// written in boxes of box_cols x box_rows.
+int bf16_map(CUtensorMap* map, const void* base, int64_t cols, int64_t rows,
+             int box_cols, int box_rows, CUtensorMapSwizzle swizzle,
+             CUtensorMapL2promotion promotion) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kStates),
-                              static_cast<cuuint64_t>(G) * kStates};
-  const cuuint64_t strides[1] = {sizeof(__nv_bfloat16) * kStates};
-  const cuuint32_t box[2] = {kStates / 2, kStates};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {sizeof(__nv_bfloat16) * static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(M),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promotion,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Ring slots a block: as many (at most kBwdMaxRing) as fit beside the
-// other blocks an SM must hold for the whole grid to be resident, and never
-// fewer than two, which fit alone.
-constexpr size_t kRingFixed = 1024 + 2 * sizeof(uint64_t) * kBwdMaxRing;
-static_assert(2 * static_cast<size_t>(kSlotBytes) + kRingFixed <= kMaxShared,
-              "two ring slots must fit in a block's shared memory");
+// The operators [G][KC][KC] bf16 as G KC rows, read in 64 x KC boxes (half
+// a row of KC rows) with the 128B swizzle.
+int operator_map(CUtensorMap* map, const __nv_bfloat16* M, int G) {
+  return bf16_map(map, M, kStates, static_cast<int64_t>(G) * kStates,
+                  kStates / 2, kStates, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+}
 
-int ring_slots(int blocks, int sms) {
+// Ring slots of `slot` bytes a block beside `extra` bytes of its own: as
+// many (at most kMaxRing) as fit beside the other blocks an SM must hold
+// for the whole grid to be resident, and never fewer than two, which fit
+// alone.
+constexpr size_t kRingFixed = 1024 + 2 * sizeof(uint64_t) * kMaxRing;
+static_assert(2 * static_cast<size_t>(kBwdSlotBytes) + kRingFixed <= kMaxShared,
+              "two ring slots must fit in a block's shared memory");
+static_assert(2 * static_cast<size_t>(kFwdSlotBytes) + kFwdTiles + kRingFixed <=
+                  kMaxShared,
+              "two ring slots and the store tiles must fit in a block's shared memory");
+
+int ring_slots(int blocks, int sms, int slot, size_t extra) {
   const size_t room = kMaxShared / ((blocks + sms - 1) / sms);
-  const int fit = room > kRingFixed ? static_cast<int>((room - kRingFixed) / kSlotBytes) : 0;
-  return fit < 2 ? 2 : fit > kBwdMaxRing ? kBwdMaxRing : fit;
+  const size_t fixed = kRingFixed + extra;
+  const int fit = room > fixed ? static_cast<int>((room - fixed) / slot) : 0;
+  return fit < 2 ? 2 : fit > kMaxRing ? kMaxRing : fit;
+}
+
+// A block's dynamic shared memory: the alignment slack, `ring` slots,
+// `extra` bytes and the ring's barriers.
+size_t ring_smem(int ring, int slot, size_t extra) {
+  return 1024 + ring * static_cast<size_t>(slot) + extra +
+         2 * ring * sizeof(uint64_t);
+}
+
+template <bool STORE_EVERY, bool NORM_BLOCK>
+int launch_forward(const __nv_bfloat16* M, int G, const float* em,
+                   const float* obs, const float* isp, const int* ops,
+                   __nv_bfloat16* alpha, int T, int P, int KA, int S, int sms,
+                   cudaStream_t stream) {
+  CUtensorMap map, amap{};
+  int rc = operator_map(&map, M, G);
+  if (rc != 0) return rc;
+  // TMA stores alpha where its rows are 16-byte aligned: [rows x KA][P],
+  // in boxes of 16 pairs x KA rows (one consumer warp's tile)
+  const bool tma_alpha = P % 8 == 0 && reinterpret_cast<uintptr_t>(alpha) % 16 == 0;
+  if (tma_alpha) {
+    rc = bf16_map(&amap, alpha, P, static_cast<int64_t>(STORE_EVERY ? T : T / S) * KA,
+                  16, KA, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_NONE);
+    if (rc != 0) return rc;
+  }
+  const bool obs_vec = P % 4 == 0 && reinterpret_cast<uintptr_t>(obs) % 16 == 0;
+  const int blocks = (P + kWgPairs - 1) / kWgPairs;
+  const int ring = ring_slots(blocks, sms, kFwdSlotBytes, kFwdTiles);
+  const size_t smem = ring_smem(ring, kFwdSlotBytes, kFwdTiles);
+  auto* kernel = alpha_wall_forward_kernel<STORE_EVERY, NORM_BLOCK>;
+  rc = allow_shared(kernel, smem);
+  if (rc != 0) return rc;
+  kernel<<<blocks, 32 * (kWgWarps + 1), smem, stream>>>(
+      map, amap, G, em, obs, isp, ops, alpha, T, P, KA, S, ring, obs_vec,
+      tma_alpha);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool READ_EVERY, bool NORM_BLOCK>
@@ -646,15 +869,14 @@ int launch_backward(const __nv_bfloat16* M, int G, const float* em,
   CUtensorMap map;
   int rc = operator_map(&map, M, G);
   if (rc != 0) return rc;
-  const int blocks = (P + kBwdPairs - 1) / kBwdPairs;
-  const int ring = ring_slots(blocks, sms);
-  const size_t smem = 1024 + ring * static_cast<size_t>(kSlotBytes) +
-                      2 * ring * sizeof(uint64_t);
+  const int blocks = (P + kWgPairs - 1) / kWgPairs;
+  const int ring = ring_slots(blocks, sms, kBwdSlotBytes, 0);
+  const size_t smem = ring_smem(ring, kBwdSlotBytes, 0);
   const bool vec = P % 8 == 0 && reinterpret_cast<uintptr_t>(alpha) % 16 == 0;
   auto* kernel = alpha_wall_backward_kernel<READ_EVERY, NORM_BLOCK>;
   rc = allow_shared(kernel, smem);
   if (rc != 0) return rc;
-  kernel<<<blocks, 32 * (kBwdWarps + 1), smem, stream>>>(
+  kernel<<<blocks, 32 * (kWgWarps + 1), smem, stream>>>(
       map, G, em, obs, alpha, ops, out, carry, carry_site, T, P, KA, S, ring,
       vec);
   return static_cast<int>(cudaGetLastError());
@@ -681,18 +903,21 @@ extern "C" int fastsmc_alpha_wall_forward(const void* M, int G,
                                           void* stream) {
   using namespace fastsmc;
   if (bad_shape(T, P, G, KC, KA, S)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const auto* m = static_cast<const __nv_bfloat16*>(M);
   auto* a = static_cast<__nv_bfloat16*>(alpha);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (store_every)
     return norm_block
-               ? launch_forward<true, true>(m, G, em, obs, isp, ops, a, T, P, KA, S, s)
-               : launch_forward<true, false>(m, G, em, obs, isp, ops, a, T, P, KA, S, s);
+               ? launch_forward<true, true>(m, G, em, obs, isp, ops, a, T, P, KA, S, sms, s)
+               : launch_forward<true, false>(m, G, em, obs, isp, ops, a, T, P, KA, S, sms, s);
   return norm_block
-             ? launch_forward<false, true>(m, G, em, obs, isp, ops, a, T, P, KA, S, s)
-             : launch_forward<false, false>(m, G, em, obs, isp, ops, a, T, P, KA, S, s);
+             ? launch_forward<false, true>(m, G, em, obs, isp, ops, a, T, P, KA, S, sms, s)
+             : launch_forward<false, false>(m, G, em, obs, isp, ops, a, T, P, KA, S, sms, s);
 }
 
 // Launch the probe's backward kernel on `stream` (device `device`); returns

@@ -542,6 +542,56 @@ def test_alpha_wall_kernels_match_plain(cuda, name):
             <= ALPHA_WALL_CARRY_RTOL
 
 
+@pytest.mark.parametrize("S", [1, 8])
+@pytest.mark.parametrize("KA", [10, 72, 128])
+@pytest.mark.parametrize("P", [5, 37, 40])
+@pytest.mark.parametrize("name", [n for n, v in alpha_wall.VARIANTS.items()
+                                  if v[0] == "fwd"])
+def test_alpha_wall_forward_at_its_edges(cuda, name, P, KA, S):
+    """The tensor-core forward against its plain version at the layout's
+    edges: a ragged last m-tile (P=5, 37; 40 = 2.5 tiles), odd P (alpha's
+    odd rows not 4-byte aligned, so stored element by element), KA below
+    16, at its default and at KC, and S=1 (every site normalised under
+    block normalisation) and 8: alpha raw within ALPHA_WALL_FWD_RTOL of the
+    plain value at every element, finite; two launches give the same
+    bytes."""
+    shape = alpha_wall.Shape(KC=128, KA=KA, S=S, P=P, T=64, G=5)
+    inp = alpha_wall.make_inputs(shape, "cuda", seed=P + KA + S)
+    got = alpha_wall.run_variant(name, inp, shape)
+    again = alpha_wall.run_variant(name, inp, shape)
+    want = alpha_wall.run_variant(name, inp, shape, plain=True)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    got = got.float()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want.float(), rtol=ALPHA_WALL_FWD_RTOL,
+                               atol=0)
+
+
+@pytest.mark.parametrize("name", [n for n, v in alpha_wall.VARIANTS.items()
+                                  if v[0] == "fwd"])
+def test_alpha_wall_forward_into_a_misaligned_view(cuda, name):
+    """The forward's stores where TMA cannot store them: alpha 2 bytes past
+    a 16-byte boundary, so no row is 4-byte aligned and every element is
+    stored alone, at P=64, where the wrapper's own alpha is stored by TMA:
+    the same bytes."""
+    from fastsmc_tpu_torch.engine._build import load_library
+    shape = alpha_wall.Shape(KC=128, KA=72, S=8, P=64, T=64, G=5)
+    inp = alpha_wall.make_inputs(shape, "cuda", seed=9)
+    _, every, norm_block = alpha_wall.VARIANTS[name]
+    want = alpha_wall.run_variant(name, inp, shape)
+    buf = torch.zeros(want.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    got = buf[1:].view(want.shape)
+    rc = load_library().fastsmc_alpha_wall_forward(
+        inp["M"].data_ptr(), shape.G, inp["em"].data_ptr(),
+        inp["obs"].data_ptr(), inp["isp"].data_ptr(), inp["ops"].data_ptr(),
+        got.data_ptr(), shape.T, shape.P, shape.KC, shape.KA, shape.S,
+        int(every), int(norm_block), 0, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("KA", [10, 72, 128])
 @pytest.mark.parametrize("P", [5, 37, 40])
 @pytest.mark.parametrize("name", [n for n, v in alpha_wall.VARIANTS.items()

@@ -4,6 +4,8 @@ line), and its reading of ptxas' log. The dump itself needs the CUDA
 toolkit and is read on the card by ``python -m
 fastsmc_tpu_torch.probes.sass`` and chip_smoke.py's A/B."""
 
+import pytest
+
 from fastsmc_tpu_torch.probes.sass import parse_sass, ptxas_lines
 
 NAME = "_ZN7fastsmc3bwd19hmm_backward_kernelILi9ELi2ELb0ELb0ELb0EEEvPKf"
@@ -85,11 +87,13 @@ def test_densest_loop_by_hmma_share_where_there_are_tensor_cores():
                                    "instructions": 9}
 
 
-WG = "_ZN7fastsmc12_GLOBAL__N_126alpha_wall_backward_kernelILb1ELb0EEEv"
+# the probe's two wgmma kernels, as nvcc mangles them
+WG = ("_ZN7fastsmc12_GLOBAL__N_126alpha_wall_backward_kernelILb1ELb0EEEv",
+      "_ZN7fastsmc12_GLOBAL__N_125alpha_wall_forward_kernelILb1ELb0EEEv")
 # a wgmma function: HGMMA is the product's opcode, so the loop at .L_x_5
 # (two HGMMA in 6 instructions) wins over the FFMA loop at .L_x_4
-WG_DUMP = f"""
-		Function : {WG}
+WG_DUMP = """
+		Function : {name}
 .L_x_4:
         /*0000*/                   FFMA R2, R3, R4, R2 ;
         /*0010*/                   BRA `(.L_x_4) ;
@@ -104,8 +108,9 @@ WG_DUMP = f"""
 """
 
 
-def test_densest_loop_by_hgmma_share_where_there_is_wgmma():
-    got = parse_sass(WG_DUMP)[WG]
+@pytest.mark.parametrize("name", WG, ids=("backward", "forward"))
+def test_densest_loop_by_hgmma_share_where_there_is_wgmma(name):
+    got = parse_sass(WG_DUMP.format(name=name))[name]
     assert got["total"]["HGMMA"] == 2 and got["total"]["FFMA"] == 1
     loop = got["densest_loop"]
     assert loop["HGMMA"] == 2 and loop["FFMA"] == 0
