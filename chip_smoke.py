@@ -1590,8 +1590,11 @@ def check_no_sync(f) -> dict:
 
 def scale_leg(FastSMC, DecodingParams, kernels, data, profile="exact"):
     """Twice on ``profile``; on the exact profile the first run's flush
-    groups after its first are queued under check_no_sync. Returns
-    (launches, the second run's records file, its row)."""
+    groups after its first are queued under check_no_sync (their
+    ``fastsmc.dispatch`` spans with them). Each row's ``phase_s`` holds the
+    seconds of the spans one level under ``fastsmc.run``
+    (``f.timer.totals()``). Returns (launches, the second run's records
+    file, its row)."""
     runs = []
     dq = None
     tag = "scale" if profile == "exact" else f"scale_{profile}"

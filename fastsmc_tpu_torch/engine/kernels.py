@@ -43,12 +43,14 @@ of each kernel instantiation (:func:`kernel_name`).
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..utils.timer import SpanRecorder
 from . import segments as seg
 from ._build import load_library
 from .oracle import DecodeContext
@@ -452,13 +454,17 @@ def backward_combine(Mb, em, obs, alpha, ops, mask, K: int,
 class GpuDecoder:
     """Device tables + the two kernels, with the ``PallasDecoder`` interface
     the pipelines use, in the context's decoding mode and on one of
-    :data:`PROFILES`."""
+    :data:`PROFILES`. Given ``spans`` (FastSMC's recorder), each decode
+    records its prologue, forward and backward (with the block reduction)
+    and each fused extraction its own span there."""
 
     supports_fused_extract = True
 
     def __init__(self, ctx: DecodeContext, device,
-                 decode_profile: str = "exact"):
+                 decode_profile: str = "exact",
+                 spans: Optional[SpanRecorder] = None):
         _check_profile(decode_profile)
+        self.spans = spans
         self.device = resolve_device(device)
         self.profile = decode_profile
         self.alpha_dtype = alpha_dtype(decode_profile)
@@ -537,18 +543,25 @@ class GpuDecoder:
                 Seq(torch.where(bwd, rate, t.identity_op).to(torch.int32),
                     hem_b.contiguous()))
 
+    def _span(self, name: str):
+        return contextlib.nullcontext() if self.spans is None \
+            else self.spans.span(name)
+
     def _decode_body(self, hap_a, hap_b, t0: int, T: int, outs: BwdOutputs,
                      state_threshold: int) -> dict:
         t = self.tables
-        obs, em, ops_f, ops_b, mask = self.prologue(hap_a, hap_b, t0, T)
-        seq_f = seq_b = None
-        if self.sequence:
-            seq_f, seq_b = self.seq_prologue(t0, T)
-        alpha = forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
-                        self.profile, t.split)
-        return backward_combine(t.Mb, em, obs, alpha, ops_b, mask, self.K,
-                                state_threshold, outs, t.exp_times, seq_b,
-                                self.profile)
+        with self._span("fastsmc.decode.prologue"):
+            obs, em, ops_f, ops_b, mask = self.prologue(hap_a, hap_b, t0, T)
+            seq_f = seq_b = None
+            if self.sequence:
+                seq_f, seq_b = self.seq_prologue(t0, T)
+        with self._span("fastsmc.decode.forward"):
+            alpha = forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
+                            self.profile, t.split)
+        with self._span("fastsmc.decode.backward"):
+            return backward_combine(t.Mb, em, obs, alpha, ops_b, mask,
+                                    self.K, state_threshold, outs,
+                                    t.exp_times, seq_b, self.profile)
 
     def decode_pairs(self, hap_a, hap_b, t0: int = 0,
                      t_len: Optional[int] = None,
@@ -586,15 +599,16 @@ class GpuDecoder:
         r = self._decode_body(hap_a, hap_b, int(t0), int(t_len), outs,
                               int(state_threshold))
         th = r["threshold_sums"]
-        thm = th if w0 is None else seg.mask_window(th, w0, w1)
-        post = r["posterior"][:, :age_threshold] if need_ages else None
-        packed, pps = seg.extract_packed(thm, s0, s1, prob_threshold, cap,
-                                         post, pps_cap, kcap)
-        if not need_ages:
-            return packed, None, th
-        t = self.tables
-        ages = seg.run_ages(pps, t.exp_times[:self.K], t.isp[:self.K],
-                            age_threshold)
+        with self._span("fastsmc.extract"):
+            thm = th if w0 is None else seg.mask_window(th, w0, w1)
+            post = r["posterior"][:, :age_threshold] if need_ages else None
+            packed, pps = seg.extract_packed(thm, s0, s1, prob_threshold,
+                                             cap, post, pps_cap, kcap)
+            if not need_ages:
+                return packed, None, th
+            t = self.tables
+            ages = seg.run_ages(pps, t.exp_times[:self.K], t.isp[:self.K],
+                                age_threshold)
         return packed, ages, th
 
 

@@ -37,9 +37,12 @@ import numpy as np
 
 from ..config import DecodingParams
 from ..io.haps import Data, JobWindows
+from ..utils.timer import SpanRecorder
 
 # callback signature: (hap_id1, hap_id2, from_pos, to_pos_inclusive)
 MatchCallback = Callable[[int, int, int, int], None]
+# the producer thread's span: a chunk of words scanned
+SCAN = "fastsmc.scan"
 
 
 @dataclasses.dataclass
@@ -59,17 +62,20 @@ def cm_between(w1: int, w2: int, genetic_positions: np.ndarray,
 
 
 class HashingScan:
-    """One streaming identification pass over a panel."""
+    """One streaming identification pass over a panel.
+
+    The producer thread's scan time goes to ``spans`` as SCAN spans, whose
+    parent is the span open where :meth:`run` was called."""
 
     def __init__(self, params: DecodingParams, data: Data,
-                 callback: MatchCallback):
+                 callback: MatchCallback,
+                 spans: Optional[SpanRecorder] = None):
         self.params = params
         self.data = data
         self.callback = callback
         self.windows = data.windows
         self.tot_pairs = 0
-        # producer-thread scan CPU seconds (host roofline accounting)
-        self.scan_thread_s = 0.0
+        self.spans = spans if spans is not None else SpanRecorder()
 
         # raw (pre-folding) alleles for this job's haps: folded ^ flipped
         raw = data.hap_bits ^ data.site_was_flipped[None, :].astype(np.uint8)
@@ -221,6 +227,11 @@ class HashingScan:
             return id_j >= (w_j - 1) * ws + (id_i - (w_i - 1) * ws)
         return False
 
+    @property
+    def scan_thread_s(self) -> float:
+        """The producer thread's scan seconds (host roofline accounting)."""
+        return self.spans.total_s(SCAN)
+
     # -- main loop (FastSMC.cpp:144-235) --------------------------------
     def run(self, verbose: bool = False, use_native: bool = True,
             overlap: bool = True, chunk_words: int = 0) -> None:
@@ -283,20 +294,19 @@ class HashingScan:
                     continue
             return False
 
+        parent = self.spans.current()
+
         def producer():
-            import time as _time
             try:
                 for w0 in range(0, tw, cw):
-                    t0 = _time.perf_counter()
-                    sc.scan_words(w0, min(w0 + cw, tw))
-                    chunk = sc.take()
-                    self.scan_thread_s += _time.perf_counter() - t0
+                    with self.spans.span(SCAN, parent):
+                        sc.scan_words(w0, min(w0 + cw, tw))
+                        chunk = sc.take()
                     if len(chunk[0]) and not _put(chunk):
                         return
-                t0 = _time.perf_counter()
-                sc.finish()
-                chunk = sc.take()
-                self.scan_thread_s += _time.perf_counter() - t0
+                with self.spans.span(SCAN, parent):
+                    sc.finish()
+                    chunk = sc.take()
                 if len(chunk[0]):
                     if not _put(chunk):
                         return

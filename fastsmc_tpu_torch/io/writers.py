@@ -27,12 +27,16 @@ import gzip
 import queue
 import struct
 import threading
-import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 from .. import native
+from ..utils.timer import SpanRecorder
+
+# the IBD writers' spans: records formatted, and their bytes deflated
+FORMAT = "fastsmc.writer.format"
+DEFLATE = "fastsmc.writer.deflate"
 
 
 def fmt_float(x) -> str:
@@ -47,11 +51,14 @@ class IbdTextWriter:
     (``threaded=True``): both the native formatter and zlib release the
     GIL, so the thread overlaps them with the device work the main thread
     waits on. Byte order is preserved (a single FIFO queue; the Python
-    fallback and close() drain the queue first)."""
+    fallback and close() drain the queue first). The formatter's and
+    deflate's time goes to ``spans`` as FORMAT and DEFLATE spans; on the
+    thread their parent is the span that queued the block."""
 
     def __init__(self, path: str, fam_ids: List[str], iids: List[str],
                  chr_number: int, append: bool = False,
-                 threaded: bool = True):
+                 threaded: bool = True,
+                 spans: Optional[SpanRecorder] = None):
         # compresslevel 6 = the zlib default the reference's gzofstream uses
         # (Python's gzip defaults to 9, ~3x slower deflate — it was ~7 s
         # of the 98k-hap e2e output phase for a 2% size difference)
@@ -63,9 +70,8 @@ class IbdTextWriter:
         self._id_blob = None          # lazy native-formatter id table
         self._id_off = None
         self._text_dirty = False      # text-wrapper bytes pending flush
-        # host time of the formatter and of gzip's deflate in write_block
-        self.fmt_s = 0.0
-        self.deflate_s = 0.0
+        # the formatter's and gzip's deflate spans (FORMAT, DEFLATE)
+        self.spans = spans if spans is not None else SpanRecorder()
         self._q = None
         self._thr = None
         self._thr_err = None
@@ -76,6 +82,17 @@ class IbdTextWriter:
                                          daemon=True)
             self._thr.start()
 
+    @property
+    def fmt_s(self) -> float:
+        """Seconds in the formatter, the total of the recorder's FORMAT
+        spans (with a recorder shared across writers, of all of them)."""
+        return self.spans.total_s(FORMAT)
+
+    @property
+    def deflate_s(self) -> float:
+        """Seconds in gzip's deflate, the total of the DEFLATE spans."""
+        return self.spans.total_s(DEFLATE)
+
     def _deflate_loop(self):
         while True:
             item = self._q.get()
@@ -84,23 +101,20 @@ class IbdTextWriter:
                     return
                 if self._thr_err is not None:
                     continue            # after an error: drop, still done
-                if isinstance(item, tuple):
-                    # deferred bulk format: ctypes releases the GIL, so
-                    # formatting joins deflate on this thread
-                    t0 = time.perf_counter()
+                # deferred bulk format: ctypes releases the GIL, so
+                # formatting joins deflate on this thread; the spans' parent
+                # is the span that queued the block
+                parent, cols = item
+                with self.spans.span(FORMAT, parent):
                     buf = native.format_ibd(self._id_blob, self._id_off,
-                                            *item[:8], str(self.chr),
-                                            *item[8:])
-                    if buf is None:
-                        raise RuntimeError(
-                            f"native IBD formatter returned no output for a "
-                            f"block of {len(item[0])} records")
-                    self.fmt_s += time.perf_counter() - t0
-                else:
-                    buf = item
-                t0 = time.perf_counter()
-                self._f.buffer.write(buf)
-                self.deflate_s += time.perf_counter() - t0
+                                            *cols[:8], str(self.chr),
+                                            *cols[8:])
+                if buf is None:
+                    raise RuntimeError(
+                        f"native IBD formatter returned no output for a "
+                        f"block of {len(cols[0])} records")
+                with self.spans.span(DEFLATE, parent):
+                    self._f.buffer.write(buf)
             except BaseException as e:      # raised on the main thread
                 self._thr_err = e
             finally:
@@ -146,22 +160,21 @@ class IbdTextWriter:
                 # direct writes is preserved by _sync_q.
                 if self._thr_err is not None:
                     raise self._thr_err
-                self._q.put((ind1, hap1, ind2, hap2, pos_start, pos_end,
-                             length_cm, score, post_est, map_est))
+                self._q.put((self.spans.current(),
+                             (ind1, hap1, ind2, hap2, pos_start, pos_end,
+                              length_cm, score, post_est, map_est)))
                 self.n_written += n
                 return
-            t0 = time.perf_counter()
-            buf = native.format_ibd(self._id_blob, self._id_off, ind1, hap1,
-                                    ind2, hap2, pos_start, pos_end,
-                                    length_cm, score, str(self.chr),
-                                    post_est, map_est)
+            with self.spans.span(FORMAT):
+                buf = native.format_ibd(self._id_blob, self._id_off, ind1,
+                                        hap1, ind2, hap2, pos_start, pos_end,
+                                        length_cm, score, str(self.chr),
+                                        post_est, map_est)
             if buf is None:
                 raise RuntimeError(f"native IBD formatter returned no "
                                    f"output for a block of {n} records")
-            self.fmt_s += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self._f.buffer.write(buf)
-            self.deflate_s += time.perf_counter() - t0
+            with self.spans.span(DEFLATE):
+                self._f.buffer.write(buf)
             self.n_written += n
             return
         fam, iid, ch = self.fam, self.iid, str(self.chr)
@@ -203,9 +216,11 @@ class IbdBinaryWriter:
 
     def __init__(self, path: str, fam_ids: List[str], iids: List[str],
                  chr_number: int, has_length: bool, has_post: bool,
-                 has_map: bool, append: bool = False):
+                 has_map: bool, append: bool = False,
+                 spans: Optional[SpanRecorder] = None):
         self._f = gzip.open(path, "ab" if append else "wb",
                             compresslevel=6)
+        self.spans = spans if spans is not None else SpanRecorder()
         self.has_length = has_length
         self.has_post = has_post
         self.has_map = has_map
@@ -240,21 +255,23 @@ class IbdBinaryWriter:
             fields.append(("post", "<f4"))
         if self.has_map:
             fields.append(("map", "<f4"))
-        rec = np.empty(n, np.dtype(fields))   # list-of-tuples dtype = packed
-        rec["i1"] = ind1
-        rec["h1"] = hap1
-        rec["i2"] = ind2
-        rec["h2"] = hap2
-        rec["s"] = pos_start
-        rec["e"] = pos_end
-        if self.has_length:
-            rec["len"] = np.asarray(length_cm, np.float32)
-        rec["score"] = np.asarray(score, np.float32)
-        if self.has_post:
-            rec["post"] = np.asarray(post_est, np.float32)
-        if self.has_map:
-            rec["map"] = np.asarray(map_est, np.float32)
-        self._f.write(rec.tobytes())
+        with self.spans.span(FORMAT):
+            rec = np.empty(n, np.dtype(fields))  # list-of-tuples: packed
+            rec["i1"] = ind1
+            rec["h1"] = hap1
+            rec["i2"] = ind2
+            rec["h2"] = hap2
+            rec["s"] = pos_start
+            rec["e"] = pos_end
+            if self.has_length:
+                rec["len"] = np.asarray(length_cm, np.float32)
+            rec["score"] = np.asarray(score, np.float32)
+            if self.has_post:
+                rec["post"] = np.asarray(post_est, np.float32)
+            if self.has_map:
+                rec["map"] = np.asarray(map_est, np.float32)
+        with self.spans.span(DEFLATE):
+            self._f.write(rec.tobytes())
         self.n_written += n
 
     def close(self):

@@ -31,6 +31,7 @@ import torch
 from ..engine.kernels import (BwdOutputs, GpuDecoder, resolve_device,
                               stage)
 from ..engine.oracle import DecodeContext
+from ..utils.timer import SpanRecorder
 
 # outputs summed over pairs (psum in the JAX package); the others are per
 # pair, with the pair axis last
@@ -93,12 +94,14 @@ class ShardedDecoder:
     """Pair-parallel decoding over a mesh with the :class:`GpuDecoder`
     interface the pipelines use (``decode_pairs``, ``decode_extract_packed``).
     The global pair batch must be a multiple of the mesh size; shard s
-    takes the s-th contiguous slice of it."""
+    takes the s-th contiguous slice of it. ``spans`` goes to every
+    shard's decoder."""
 
     supports_fused_extract = True
 
     def __init__(self, ctx: DecodeContext, mesh: Mesh,
-                 decode_profile: str = "exact"):
+                 decode_profile: str = "exact",
+                 spans: Optional[SpanRecorder] = None):
         self.ctx = ctx
         self.mesh = mesh
         self.devices = mesh.devices
@@ -107,7 +110,8 @@ class ShardedDecoder:
         for dev in self.devices:
             if dev not in self.decoders:
                 with on_device(dev):
-                    self.decoders[dev] = GpuDecoder(ctx, dev, decode_profile)
+                    self.decoders[dev] = GpuDecoder(ctx, dev, decode_profile,
+                                                    spans)
         self.alpha_dtype = self.shard_decoder(0).alpha_dtype
         self.L = self.shard_decoder(0).L
 

@@ -21,12 +21,24 @@ bytes a large enough cap would have given. With a mesh
 (``parallel.sharding``) each batch is split over its shards, which extract
 their own runs; the per-shard rows are merged at the drain, and any shard
 over a cap redoes the batch. Record order equals the JAX package's.
+
+Every stage records a span in ``FastSMC.timer`` (``utils.timer``), all
+under ``fastsmc.run``: ``fastsmc.intake`` (candidate or pair bookkeeping),
+``fastsmc.dispatch`` (a group queued; in it each batch's
+``fastsmc.decode.prologue``, ``.forward``, ``.backward`` and
+``fastsmc.extract``), ``fastsmc.drain`` (with ``fastsmc.drain.wait`` on the
+card and ``fastsmc.drain.redo``), ``fastsmc.emit`` (a batch's records to
+the writer, whose thread records ``fastsmc.writer.format`` and
+``.deflate`` with that emit as parent), ``fastsmc.checkpoint`` and the
+final ``fastsmc.writer.close``; the constructor records ``fastsmc.init``,
+the hashing scan's thread ``fastsmc.scan``. Under a running profiler they
+are ``record_function`` ranges of the trace too. ``roofline()``'s host
+seconds are read from them.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -37,12 +49,12 @@ from ..engine import segments as seg
 from ..engine.hmm import bucket_len
 from ..engine.kernels import GpuDecoder, resolve_device, stage
 from ..engine.oracle import DecodeContext
-from ..hashing.germline import HashingScan
+from ..hashing.germline import SCAN, HashingScan
 from ..io import writers
 from ..io.decoding_quantities import DecodingQuantities
 from ..io.haps import Data, load_data
 from ..parallel.sharding import ShardedDecoder, on_device
-from ..utils.timer import PhaseTimer
+from ..utils.timer import SpanRecorder
 from .asmc import job_pair_range, pairs_from_flat_indices
 
 # batches a flush group holds when the caller gives no flush_group
@@ -150,31 +162,34 @@ class FastSMC:
                              "exclusive candidate orderings")
         params.fastsmc = True
         self.params = params
-        self.data = data if data is not None else load_data(params)
-        self.dq = dq if dq is not None else DecodingQuantities.load(
-            params.decoding_quant_file)
-        self.ctx = DecodeContext.build(params, self.data, self.dq)
-        if mesh is None:
-            self.decoder = GpuDecoder(self.ctx, device, decode_profile)
-            self._devices = [device]
-            self._shards = 1
-        else:
-            self.decoder = ShardedDecoder(self.ctx, mesh, decode_profile)
-            self._devices = list(dict.fromkeys(mesh.devices))
-            self._shards = self.decoder.n_extract_shards
+        self.timer = SpanRecorder(root="fastsmc.run")
+        with self.timer.span("fastsmc.init"):
+            self.data = data if data is not None else load_data(params)
+            self.dq = dq if dq is not None else DecodingQuantities.load(
+                params.decoding_quant_file)
+            self.ctx = DecodeContext.build(params, self.data, self.dq)
+            if mesh is None:
+                self.decoder = GpuDecoder(self.ctx, device, decode_profile,
+                                          self.timer)
+                self._devices = [device]
+                self._shards = 1
+            else:
+                self.decoder = ShardedDecoder(self.ctx, mesh, decode_profile,
+                                              self.timer)
+                self._devices = list(dict.fromkeys(mesh.devices))
+                self._shards = self.decoder.n_extract_shards
 
-        K = self.dq.states
-        self.state_threshold = seg.state_threshold(
-            self.dq.discretization, params.time, K)
-        self.prob_threshold = seg.probability_threshold(
-            self.dq.initial_state_prob, self.state_threshold)
+            K = self.dq.states
+            self.state_threshold = seg.state_threshold(
+                self.dq.discretization, params.time, K)
+            self.prob_threshold = seg.probability_threshold(
+                self.dq.initial_state_prob, self.state_threshold)
         self.age_threshold = K if params.no_conditional_age_estimates \
             else self.state_threshold
         self.need_ages = (params.do_per_pair_posterior_mean
                           or params.do_per_pair_map)
 
         self._writer = None
-        self.timer = PhaseTimer()
         bs = params.batch_size
         self._bh1 = np.zeros(bs, dtype=np.int32)
         self._bh2 = np.zeros(bs, dtype=np.int32)
@@ -187,7 +202,6 @@ class FastSMC:
         self._batch_idx = 0
         self._resume_skip = 0
         self._drains_since_ckpt = 0
-        self._scan_thread_s = 0.0
         # extraction caps (fastsmc.py:205-235), grown sticky on overflow:
         # the raw boundary pass, the kept runs, the per-run age rows. With
         # ages an overflow re-decodes the batch, so the raw cap starts at
@@ -214,12 +228,10 @@ class FastSMC:
         self.bucket_sites = bucket_sites
         self._buckets: dict = {}        # region -> list of column tuples
         self._bucket_n: dict = {}       # region -> buffered count
-        # window waste, and the host terms of roofline()
+        # window waste, redos and the bytes copied from the card
         self.stats = {"decoded_site_pairs": 0, "union_site_pairs": 0,
                       "cand_site_pairs": 0, "flushes": 0,
-                      "overflow_redos": 0, "d2h_bytes": 0,
-                      "drain_wait_s": 0.0, "drain_host_s": 0.0,
-                      "batcher_s": 0.0, "ckpt_s": 0.0}
+                      "overflow_redos": 0, "d2h_bytes": 0}
 
     # ------------------------------------------------------------------
     def _open_writer(self, append: bool = False):
@@ -230,11 +242,11 @@ class FastSMC:
                 path, self.data.fam_id_list, self.data.iid_list,
                 self.data.chr_number, p.output_ibd_segment_length,
                 p.do_per_pair_posterior_mean, p.do_per_pair_map,
-                append=append)
+                append=append, spans=self.timer)
         else:
             self._writer = writers.IbdTextWriter(
                 path, self.data.fam_id_list, self.data.iid_list,
-                self.data.chr_number, append=append)
+                self.data.chr_number, append=append, spans=self.timer)
         return path
 
     # ------------------------------------------------------------------
@@ -282,34 +294,35 @@ class FastSMC:
 
     def _bucket_push(self, id1, id2, frm, to):
         """Assign each candidate its canonical window; a bucket that holds
-        batch_size candidates flushes at once. A candidate's output then
-        depends only on (pair, canonical window), never on batch size,
-        arrival order or batch composition. ``batcher_s`` times the
+        batch_size candidates flushes, in the order the buckets fill, once
+        the chunk is bucketed. A candidate's output then depends only on
+        (pair, canonical window), never on batch size, arrival order or
+        batch composition. The ``fastsmc.intake`` span times the
         bookkeeping, not the flushes."""
         bs = self.params.batch_size
-        t0 = time.perf_counter()
-        t_flush = 0.0
-        kk, oo = self._canonical_windows(frm, to)
-        key = (kk << 48) | oo
-        order = np.argsort(key, kind="stable")
-        keys, starts = np.unique(key[order], return_index=True)
-        for i, k in enumerate(keys):
-            sl = order[starts[i]:
-                       starts[i + 1] if i + 1 < len(keys) else None]
-            k = int(k)
-            self._buckets.setdefault(k, []).append(
-                (id1[sl], id2[sl], frm[sl], to[sl]))
-            n = self._bucket_n.get(k, 0) + len(sl)
-            while n >= bs:
-                cols = [np.concatenate([c_[j] for c_ in self._buckets[k]])
-                        for j in range(4)]
-                tf = time.perf_counter()
-                self._flush_bucket([c[:bs] for c in cols], k)
-                t_flush += time.perf_counter() - tf
-                self._buckets[k] = [tuple(c[bs:] for c in cols)]
-                n -= bs
-            self._bucket_n[k] = n
-        self.stats["batcher_s"] += time.perf_counter() - t0 - t_flush
+        full = []
+        with self.timer.span("fastsmc.intake"):
+            kk, oo = self._canonical_windows(frm, to)
+            key = (kk << 48) | oo
+            order = np.argsort(key, kind="stable")
+            keys, starts = np.unique(key[order], return_index=True)
+            for i, k in enumerate(keys):
+                sl = order[starts[i]:
+                           starts[i + 1] if i + 1 < len(keys) else None]
+                k = int(k)
+                self._buckets.setdefault(k, []).append(
+                    (id1[sl], id2[sl], frm[sl], to[sl]))
+                n = self._bucket_n.get(k, 0) + len(sl)
+                while n >= bs:
+                    cols = [np.concatenate([c_[j]
+                                            for c_ in self._buckets[k]])
+                            for j in range(4)]
+                    full.append(([c[:bs] for c in cols], k))
+                    self._buckets[k] = [tuple(c[bs:] for c in cols)]
+                    n -= bs
+                self._bucket_n[k] = n
+        for cols, k in full:
+            self._flush_bucket(cols, k)
 
     def _flush_bucket(self, cols, key: int):
         """Flush one canonical-window batch: decode bounds come from the
@@ -324,60 +337,69 @@ class FastSMC:
     def _drain_buckets(self):
         """End-of-scan flush: each remaining bucket tail flushes as its own
         (partial) batch, in key order."""
-        for key in sorted(self._buckets):
-            cols = [np.concatenate([c_[j] for c_ in self._buckets[key]])
-                    for j in range(4)]
+        with self.timer.span("fastsmc.intake"):
+            tails = [([np.concatenate([c_[j] for c_ in self._buckets[key]])
+                       for j in range(4)], key)
+                     for key in sorted(self._buckets)]
+            self._buckets.clear()
+            self._bucket_n.clear()
+        for cols, key in tails:
             if len(cols[0]):
                 self._flush_bucket(cols, key)
-        self._buckets.clear()
-        self._bucket_n.clear()
 
     def _push_arrays(self, id1, id2, from_pos, to_pos):
-        """Arrival-order batches of batch_size candidates."""
+        """Arrival-order batches of batch_size candidates; the full ones
+        flush once the chunk is buffered."""
         bs = self.params.batch_size
-        i, n = 0, len(id1)
-        while i < n:
-            take = min(bs - self._bn, n - i)
-            sl = slice(self._bn, self._bn + take)
-            self._bh1[sl] = id1[i:i + take]
-            self._bh2[sl] = id2[i:i + take]
-            self._from[sl] = from_pos[i:i + take]
-            self._to[sl] = to_pos[i:i + take]
-            self._bn += take
-            i += take
-            if self._bn == bs:
-                self._flush(self._bn)
+        full = []
+        with self.timer.span("fastsmc.intake"):
+            i, n = 0, len(id1)
+            while i < n:
+                take = min(bs - self._bn, n - i)
+                sl = slice(self._bn, self._bn + take)
+                self._bh1[sl] = id1[i:i + take]
+                self._bh2[sl] = id2[i:i + take]
+                self._from[sl] = from_pos[i:i + take]
+                self._to[sl] = to_pos[i:i + take]
+                self._bn += take
+                i += take
+                if self._bn == bs:
+                    full.append(self._take(bs))
+        for cols in full:
+            self._flush_entry(*cols, bs)
 
     def _drain_sort_buf(self, final: bool):
         """Sort the buffered candidates by genomic region (from // 512),
         window-length class and start, and push full batches; keep a
         partial batch buffered unless ``final`` (fastsmc.py:425-455; the
         stable order keeps the stream deterministic for resume)."""
-        frm = np.concatenate([c[0] for c in self._sort_buf])
-        to = np.concatenate([c[1] for c in self._sort_buf])
-        id1 = np.concatenate([c[2] for c in self._sort_buf])
-        id2 = np.concatenate([c[3] for c in self._sort_buf])
-        wl = np.maximum(to - frm, 1)
-        cls = np.frexp(wl.astype(np.float64))[1]   # ceil log2 length class
-        order = np.lexsort((to, frm, cls, frm // 512))
-        bs = self.params.batch_size
-        keep = 0 if final else len(order) % bs
-        emit = order[:len(order) - keep] if keep else order
-        rest = order[len(order) - keep:] if keep else order[:0]
-        self._sort_buf = [(frm[rest], to[rest], id1[rest], id2[rest])] \
-            if keep else []
-        self._sort_n = keep
+        with self.timer.span("fastsmc.intake"):
+            frm = np.concatenate([c[0] for c in self._sort_buf])
+            to = np.concatenate([c[1] for c in self._sort_buf])
+            id1 = np.concatenate([c[2] for c in self._sort_buf])
+            id2 = np.concatenate([c[3] for c in self._sort_buf])
+            wl = np.maximum(to - frm, 1)
+            cls = np.frexp(wl.astype(np.float64))[1]   # ceil log2 class
+            order = np.lexsort((to, frm, cls, frm // 512))
+            bs = self.params.batch_size
+            keep = 0 if final else len(order) % bs
+            emit = order[:len(order) - keep] if keep else order
+            rest = order[len(order) - keep:] if keep else order[:0]
+            self._sort_buf = [(frm[rest], to[rest], id1[rest], id2[rest])] \
+                if keep else []
+            self._sort_n = keep
         self._push_arrays(id1[emit], id2[emit], frm[emit], to[emit])
 
-    def _flush(self, n: int):
-        if n == 0:
-            return
-        h1 = self._bh1[:n].copy()
-        h2 = self._bh2[:n].copy()
-        fr = self._from[:n].copy()
-        to = self._to[:n].copy()
+    def _take(self, n: int):
+        """Copies of the first ``n`` buffered candidates' columns; the
+        buffer is then empty."""
         self._bn = 0
-        self._flush_entry(h1, h2, fr, to, self.params.batch_size)
+        return (self._bh1[:n].copy(), self._bh2[:n].copy(),
+                self._from[:n].copy(), self._to[:n].copy())
+
+    def _flush(self, n: int):
+        if n:
+            self._flush_entry(*self._take(n), self.params.batch_size)
 
     # ------------------------------------------------------------------
     def _flush_entry(self, h1, h2, fr, to, pad_to: int, bounds=None):
@@ -457,8 +479,7 @@ class FastSMC:
         entries, self._group = self._group, []
         self.stats["decoded_site_pairs"] += \
             sum(e["t_len"] * e["P"] for e in entries)
-        with self.timer.phase("decode"):
-            pending = self._queue_group(entries)
+        pending = self._queue_group(entries)
         self._drain_group()
         self._gpending = pending
 
@@ -475,25 +496,27 @@ class FastSMC:
         after them; nothing here waits for a card. The pair and window
         arrays go up through pinned tensors, which the entries keep until
         the drain."""
-        kcap = min(self._kept_cap, self._seg_cap)
-        packs, ages = [], []
-        for e in entries:
-            e["dev"] = [(None, None) if e[k] is None else self._stage(e[k])
-                        for k in ("hap1", "hap2", "w0", "w1")]
-            packed, ages_rows, th = self._decode(e, self._seg_cap, kcap)
-            # without ages a redo re-extracts from the threshold sums
-            e["th"] = None if self.need_ages else th
-            packs.append(packed)
-            ages.append(ages_rows)
-        res = dict(entries=entries, caps=(self._seg_cap, kcap),
-                   packed=_to_host(seg.stack_rows(packs)),
-                   ages=_to_host(seg.stack_rows(ages))
-                   if self.need_ages else None, events=[])
-        for dev in self._devices:
-            if dev.type == "cuda":
-                with on_device(dev):
-                    res["events"].append(torch.cuda.Event())
-                    res["events"][-1].record()
+        with self.timer.span("fastsmc.dispatch"):
+            kcap = min(self._kept_cap, self._seg_cap)
+            packs, ages = [], []
+            for e in entries:
+                e["dev"] = [(None, None) if e[k] is None
+                            else self._stage(e[k])
+                            for k in ("hap1", "hap2", "w0", "w1")]
+                packed, ages_rows, th = self._decode(e, self._seg_cap, kcap)
+                # without ages a redo re-extracts from the threshold sums
+                e["th"] = None if self.need_ages else th
+                packs.append(packed)
+                ages.append(ages_rows)
+            res = dict(entries=entries, caps=(self._seg_cap, kcap),
+                       packed=_to_host(seg.stack_rows(packs)),
+                       ages=_to_host(seg.stack_rows(ages))
+                       if self.need_ages else None, events=[])
+            for dev in self._devices:
+                if dev.type == "cuda":
+                    with on_device(dev):
+                        res["events"].append(torch.cuda.Event())
+                        res["events"][-1].record()
         return res
 
     def _decode(self, e: dict, cap: int, kcap: int):
@@ -546,12 +569,10 @@ class FastSMC:
         res, self._gpending = self._gpending, None
         entries = res["entries"]
         st = self.stats
-        with self.timer.phase("segments"):
-            t0 = time.perf_counter()
-            wait0 = st["drain_wait_s"]
-            for event in res["events"]:
-                event.synchronize()
-            st["drain_wait_s"] += time.perf_counter() - t0
+        with self.timer.span("fastsmc.drain"):
+            with self.timer.span("fastsmc.drain.wait"):
+                for event in res["events"]:
+                    event.synchronize()
             packed = res["packed"].numpy()
             ages = None if res["ages"] is None else res["ages"].numpy()
             st["d2h_bytes"] += packed.nbytes + (0 if ages is None
@@ -572,11 +593,8 @@ class FastSMC:
                                                  e["t_len"]),
                             None if ages is None
                             else self._merge_entry_ages(ages[i], ns_kept)))
-            st["drain_host_s"] += (time.perf_counter() - t0
-                                   - (st["drain_wait_s"] - wait0))
-        with self.timer.phase("outputPerPair"):
-            for e, (runs, ages_e) in zip(entries, out):
-                self._emit_runs(e, *runs, ages=ages_e)
+        for e, (runs, ages_e) in zip(entries, out):
+            self._emit_runs(e, *runs, ages=ages_e)
         # the checkpoint names only batches whose records reached the
         # writer; run() closes the output without one
         self._drains_since_ckpt += 1
@@ -591,103 +609,100 @@ class FastSMC:
         saved threshold sums; repeated until nothing overflows. Returns
         ((pair, a, b, score), ages or None) as the drain does, so the
         bytes equal those of a large enough first cap."""
-        st = self.stats
-        while True:
-            raw_cap = self._seg_cap
-            kcap = min(self._kept_cap, raw_cap)
-            if self.need_ages:
-                packed_d, ages_d, _ = self._decode(e, raw_cap, kcap)
-            else:
-                # one flat row from the whole batch's threshold sums, also
-                # with a mesh: the same runs in the same order
-                th = e["th"] if e["w0"] is None \
-                    else seg.mask_window(e["th"], e["w0"], e["w1"])
-                packed_d, _ = seg.extract_packed(
-                    th, e["s0"], e["s1"], self.prob_threshold, raw_cap,
-                    kcap=kcap)
-                ages_d = None
-            t_w = time.perf_counter()
-            packed = packed_d.cpu().numpy()
-            ages = None if ages_d is None else ages_d.cpu().numpy()
-            st["drain_wait_s"] += time.perf_counter() - t_w
-            st["d2h_bytes"] += packed.nbytes + (0 if ages is None
-                                                else ages.nbytes)
-            start, b, score, ns_kept, ns_raw = self._unpack_entry(packed, e)
-            nk, nr = max(ns_kept), max(ns_raw)
-            if nr <= raw_cap and nk <= kcap \
-                    and (ages is None or nk <= ages.shape[-1]):
-                break
-            self._grow_caps(nr, nk)
-        return (seg.runs_from_packed(start, b, score, e["t_len"]),
-                None if ages is None
-                else self._merge_entry_ages(ages, ns_kept))
+        with self.timer.span("fastsmc.drain.redo"):
+            while True:
+                raw_cap = self._seg_cap
+                kcap = min(self._kept_cap, raw_cap)
+                if self.need_ages:
+                    packed_d, ages_d, _ = self._decode(e, raw_cap, kcap)
+                else:
+                    # one flat row from the whole batch's threshold sums,
+                    # also with a mesh: the same runs in the same order
+                    with self.timer.span("fastsmc.extract"):
+                        th = e["th"] if e["w0"] is None \
+                            else seg.mask_window(e["th"], e["w0"], e["w1"])
+                        packed_d, _ = seg.extract_packed(
+                            th, e["s0"], e["s1"], self.prob_threshold,
+                            raw_cap, kcap=kcap)
+                    ages_d = None
+                with self.timer.span("fastsmc.drain.wait"):
+                    packed = packed_d.cpu().numpy()
+                    ages = None if ages_d is None else ages_d.cpu().numpy()
+                self.stats["d2h_bytes"] += packed.nbytes + (
+                    0 if ages is None else ages.nbytes)
+                start, b, score, ns_kept, ns_raw = \
+                    self._unpack_entry(packed, e)
+                nk, nr = max(ns_kept), max(ns_raw)
+                if nr <= raw_cap and nk <= kcap \
+                        and (ages is None or nk <= ages.shape[-1]):
+                    break
+                self._grow_caps(nr, nk)
+            return (seg.runs_from_packed(start, b, score, e["t_len"]),
+                    None if ages is None
+                    else self._merge_entry_ages(ages, ns_kept))
 
     def _emit_runs(self, e, pair, a, b, score_sum, ages=None):
         """Write one batch's kept runs (window-relative a/b); ``ages`` is
         [2, n_kept] (posterior mean, MAP) aligned with the runs."""
-        p = self.params
-        keep = pair < e["n"]
-        pair, a, b = pair[keep], a[keep], b[keep]
-        score_sum = score_sum[keep]
-        start = a + e["frm"]
-        end = b + e["frm"]
-        h1 = e["hap1"][pair]
-        h2 = e["hap2"][pair]
-        length = None
-        if p.output_ibd_segment_length:
-            gp32 = self._gp32
-            length = np.float32(100.0) * (gp32[end] - gp32[start])
-        score = score_sum.astype(np.float64) / (end - start + 1)
-        post_est = map_est = None
-        if ages is not None:
-            if p.do_per_pair_posterior_mean:
-                post_est = ages[0][keep]
-            if p.do_per_pair_map:
-                map_est = ages[1][keep]
-        phys = self.data.physical_positions
-        self._writer.write_block(h1 >> 1, 1 + (h1 & 1), h2 >> 1,
-                                 1 + (h2 & 1), phys[start], phys[end],
-                                 length, score, post_est, map_est)
-        self.n_segments += len(pair)
+        with self.timer.span("fastsmc.emit"):
+            p = self.params
+            keep = pair < e["n"]
+            pair, a, b = pair[keep], a[keep], b[keep]
+            score_sum = score_sum[keep]
+            start = a + e["frm"]
+            end = b + e["frm"]
+            h1 = e["hap1"][pair]
+            h2 = e["hap2"][pair]
+            length = None
+            if p.output_ibd_segment_length:
+                gp32 = self._gp32
+                length = np.float32(100.0) * (gp32[end] - gp32[start])
+            score = score_sum.astype(np.float64) / (end - start + 1)
+            post_est = map_est = None
+            if ages is not None:
+                if p.do_per_pair_posterior_mean:
+                    post_est = ages[0][keep]
+                if p.do_per_pair_map:
+                    map_est = ages[1][keep]
+            phys = self.data.physical_positions
+            self._writer.write_block(h1 >> 1, 1 + (h1 & 1), h2 >> 1,
+                                     1 + (h2 & 1), phys[start], phys[end],
+                                     length, score, post_est, map_est)
+            self.n_segments += len(pair)
 
     def _write_progress(self, done_idx: int):
         """Checkpoint (fastsmc.py:872-899): close the current gzip member
         so the file is valid up to here, record (finished batches,
-        segments, byte offset), and reopen in append mode, carrying the
-        writer's counters; the time goes to ``ckpt_s``."""
-        t0 = time.perf_counter()
-        out = self.params.ibd_output_path()
-        self._writer.close()
-        # read after close(): it drains the writer thread's queue
-        fmt_s = getattr(self._writer, "fmt_s", 0.0)
-        deflate_s = getattr(self._writer, "deflate_s", 0.0)
-        offset = os.path.getsize(out)
-        path = out + ".progress"
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            f.write(f"{done_idx} {self.n_segments} {offset}\n")
-        os.replace(tmp, path)
-        self._open_writer(append=True)
-        self._writer.fmt_s = fmt_s
-        self._writer.deflate_s = deflate_s
-        self.stats["ckpt_s"] += time.perf_counter() - t0
+        segments, byte offset), and reopen in append mode; the reopened
+        writer records into the same spans."""
+        with self.timer.span("fastsmc.checkpoint"):
+            out = self.params.ibd_output_path()
+            self._writer.close()
+            offset = os.path.getsize(out)
+            path = out + ".progress"
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(f"{done_idx} {self.n_segments} {offset}\n")
+            os.replace(tmp, path)
+            self._open_writer(append=True)
 
     def roofline(self) -> dict:
         """Host terms of a finished run (fastsmc.py:980-996): megabytes
-        copied from the card, the drain's wait on the card and its own host
-        time, the batcher's and the checkpoints' host time, the writer's
-        format and deflate time and the scan thread's time, in seconds."""
-        st = self.stats
-        w = self._writer
+        copied from the card, then seconds from the spans: the drain's wait
+        on the card and its own host time (its span less the waits), the
+        batcher's and the checkpoints', the writer's format and deflate and
+        the scan thread's."""
+        sp = self.timer
+        wait = sp.total_s("fastsmc.drain.wait")
         return {
-            "d2h_mb": st["d2h_bytes"] / 1e6,
-            "drain_wait_s": st["drain_wait_s"],
-            "drain_host_s": st["drain_host_s"],
-            "batcher_s": st["batcher_s"],
-            "ckpt_s": st["ckpt_s"],
-            "writer_fmt_s": getattr(w, "fmt_s", 0.0),
-            "writer_deflate_s": getattr(w, "deflate_s", 0.0),
-            "scan_thread_s": self._scan_thread_s,
+            "d2h_mb": self.stats["d2h_bytes"] / 1e6,
+            "drain_wait_s": wait,
+            "drain_host_s": sp.total_s("fastsmc.drain") - wait,
+            "batcher_s": sp.total_s("fastsmc.intake"),
+            "ckpt_s": sp.total_s("fastsmc.checkpoint"),
+            "writer_fmt_s": sp.total_s(writers.FORMAT),
+            "writer_deflate_s": sp.total_s(writers.DEFLATE),
+            "scan_thread_s": sp.total_s(SCAN),
         }
 
     # ------------------------------------------------------------------
@@ -702,22 +717,23 @@ class FastSMC:
         L = self.data.sites
         start, end = job_pair_range(self.data.n_ind, p)
         for ofs in range(start, end, p.batch_size):
-            n = min(ofs + p.batch_size, end) - ofs
-            self._cpt += n
-            self.stats["cand_site_pairs"] += L * n
-            if self._batch_idx < self._resume_skip:
+            with self.timer.span("fastsmc.intake"):
+                n = min(ofs + p.batch_size, end) - ofs
+                self._cpt += n
+                self.stats["cand_site_pairs"] += L * n
+                skip = self._batch_idx < self._resume_skip
                 self._batch_idx += 1
-                continue
-            self._batch_idx += 1
-            h1, h2 = pairs_from_flat_indices(np.arange(ofs, ofs + n),
-                                             p.within_only)
-            fill = -n % self._shards
-            h1, h2 = (np.concatenate([h.astype(np.int32),
-                                      np.full(fill, h[-1], np.int32)])
-                      for h in (h1, h2))
-            self._queue_entry(dict(
-                hap1=h1, hap2=h2, n=n, frm=0, t_len=bucket_len(L), s0=0,
-                s1=L, w0=None, w1=None, P=n + fill))
+                if not skip:
+                    h1, h2 = pairs_from_flat_indices(
+                        np.arange(ofs, ofs + n), p.within_only)
+                    fill = -n % self._shards
+                    h1, h2 = (np.concatenate([h.astype(np.int32),
+                                              np.full(fill, h[-1], np.int32)])
+                              for h in (h1, h2))
+            if not skip:
+                self._queue_entry(dict(
+                    hap1=h1, hap2=h2, n=n, frm=0, t_len=bucket_len(L), s0=0,
+                    s1=L, w0=None, w1=None, P=n + fill))
 
     # ------------------------------------------------------------------
     def run(self, verbose: bool = True, resume: bool = False) -> str:
@@ -725,9 +741,26 @@ class FastSMC:
         With ``resume=True`` a run killed after a checkpoint continues:
         the output is cut back to the ``.progress`` sidecar's offset, the
         deterministic candidate stream is replayed and the batches the
-        sidecar names are skipped."""
-        t0 = time.time()
-        self.timer = PhaseTimer()
+        sidecar names are skipped. The spans start afresh."""
+        self.timer.reset()
+        with self.timer.span("fastsmc.run"):
+            path = self._run(resume, verbose)
+        if verbose:
+            print(f"[fastsmc] {self.n_segments} segments "
+                  f"({self._cpt} candidates) in {self.timer.total():.2f}s "
+                  f"-> {path}")
+            st = self.stats
+            if st["cand_site_pairs"]:
+                dr = st["decoded_site_pairs"] / st["cand_site_pairs"]
+                ur = st["union_site_pairs"] / st["cand_site_pairs"]
+                print(f"[fastsmc] window waste: decoded/candidate "
+                      f"site-pairs = {dr:.2f}x (union/candidate = {ur:.2f}x, "
+                      f"{st['flushes']} flushes, {st['overflow_redos']} "
+                      f"overflow redos)")
+            self.timer.report()
+        return path
+
+    def _run(self, resume: bool, verbose: bool) -> str:
         out = self.params.ibd_output_path()
         progress = out + ".progress"
         append = False
@@ -742,11 +775,10 @@ class FastSMC:
             append = True
         path = self._open_writer(append=append)
         if self.params.hashing:
-            with self.timer.phase("identification"):
-                scan = HashingScan(self.params, self.data, self._on_match)
-                scan.array_callback = self._on_matches_array
-                scan.run(verbose=verbose)
-            self._scan_thread_s = scan.scan_thread_s
+            scan = HashingScan(self.params, self.data, self._on_match,
+                               self.timer)
+            scan.array_callback = self._on_matches_array
+            scan.run(verbose=verbose)
             if self.bucket_sites:
                 self._drain_buckets()
             if self._sort_buf:
@@ -756,22 +788,10 @@ class FastSMC:
             self._run_no_hashing()
         self._dispatch_group()
         self._drain_group()
-        self._writer.close()
+        with self.timer.span("fastsmc.writer.close"):
+            self._writer.close()
         if os.path.exists(progress):
             os.remove(progress)
-        if verbose:
-            print(f"[fastsmc] {self.n_segments} segments "
-                  f"({self._cpt} candidates) in {time.time() - t0:.2f}s "
-                  f"-> {path}")
-            st = self.stats
-            if st["cand_site_pairs"]:
-                dr = st["decoded_site_pairs"] / st["cand_site_pairs"]
-                ur = st["union_site_pairs"] / st["cand_site_pairs"]
-                print(f"[fastsmc] window waste: decoded/candidate "
-                      f"site-pairs = {dr:.2f}x (union/candidate = {ur:.2f}x, "
-                      f"{st['flushes']} flushes, {st['overflow_redos']} "
-                      f"overflow redos)")
-            self.timer.report()
         return path
 
 
