@@ -143,7 +143,8 @@ package: one run a side, then profiled runs in turns (parent, this, this,
 parent) with wall, device idle share, roofline() (where the side has one)
 and peak memory; this tree's records must have the parent's keys in the
 parent's order (floats within GOLDEN_RTOL), each side's runs the same
-bytes. Then the phases above.
+bytes, and whether the sides' decompressed sha256 are equal. Then the
+phases above.
 
     python3 chip_smoke.py --ab-parent DIR [--ab-only]
 
@@ -1738,6 +1739,9 @@ def fastsmc_ab(parent: str, FastSMC, DecodingParams, data) -> None:
         f"each side: {json.dumps({k: len(v) == 1 for k, v in digests.items()})}")
     if any(len(v) != 1 for v in digests.values()):
         raise AssertionError("fastsmc a/b: a side's runs differ")
+    log(f"[fastsmc a/b] decompressed sha256 this {min(digests['this'])}, "
+        f"parent {min(digests['parent'])}, equal: "
+        f"{digests['this'] == digests['parent']}")
 
 
 def ab_fast_legs(parent: str, ASMC, FastSMC, DecodingParams, data) -> None:

@@ -12,21 +12,38 @@ reference formats:
   * reader of ``.bibd.gz`` mirroring BinaryDataReader.hpp:64-185 (the
     ``convert-binary`` CLI)
 
+The text ``.ibd.gz`` is a series of complete gzip members, one per chunk
+of CHUNK_RECORDS records (about 1 MiB of text; the last of a file, or of a
+checkpoint's part, holds fewer), cut across the blocks' edges so that
+small blocks share a member: gzip readers (``gzip.open``, ``zcat``) read it
+as one stream, so the decompressed bytes are the JAX package's, while the
+compressed bytes differ from its single stream (about 0.3 % larger). A
+pool of W worker threads formats and deflates the chunks, and one ordered
+writer thread appends the finished members in chunk order. W = max(1,
+min(8, usable cores - 1)), the cores read from the process's CPU affinity:
+one is left to the main thread and the hashing scan. With W = 1 the
+chunks are formatted and deflated one after another, in order, as the JAX
+writer's thread does its blocks.
+
 One fault of the JAX package's text writer is repaired here: when the
 native formatter returns ``None`` (its C side refuses a truncated buffer)
 the writer thread there fails on ``write(None)`` and exits with items still
 queued, so the next ``Queue.join()`` never returns. This writer names the
-formatter's failure, keeps marking the items left after an error as done,
-and raises the error from ``close()`` instead of hanging.
+formatter's failure, keeps taking the chunks left after an error, and
+raises the error from ``close()`` instead of hanging.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gzip
+import os
 import queue
 import struct
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -37,6 +54,26 @@ from ..utils.timer import SpanRecorder
 # the IBD writers' spans: records formatted, and their bytes deflated
 FORMAT = "fastsmc.writer.format"
 DEFLATE = "fastsmc.writer.deflate"
+# the text writer's counters: members written, and wall seconds in which
+# at least one worker formatted or deflated
+CHUNKS = "fastsmc.writer.chunks"
+BUSY = "fastsmc.writer.busy_s"
+
+# records per gzip member: ~0.9 MiB of text at ~92 bytes a record
+CHUNK_RECORDS = 10_000
+# chunks queued and not yet written; a full queue blocks the emit
+MAX_CHUNKS_IN_FLIGHT = 64
+
+
+def _usable_cores() -> int:
+    """Cores this process may run on."""
+    return len(os.sched_getaffinity(0))
+
+
+def pool_workers() -> int:
+    """W, the text writer's worker threads: one core left to the main
+    thread and the hashing scan, at most 8."""
+    return max(1, min(8, _usable_cores() - 1))
 
 
 def fmt_float(x) -> str:
@@ -47,39 +84,55 @@ def fmt_float(x) -> str:
 class IbdTextWriter:
     """Streaming text IBD writer (HMM.cpp:1114-1144).
 
-    Bulk writes are formatted and deflated on a background thread
-    (``threaded=True``): both the native formatter and zlib release the
-    GIL, so the thread overlaps them with the device work the main thread
-    waits on. Byte order is preserved (a single FIFO queue; the Python
-    fallback and close() drain the queue first). The formatter's and
-    deflate's time goes to ``spans`` as FORMAT and DEFLATE spans; on the
-    thread their parent is the span that queued the block."""
+    The records are cut into chunks of CHUNK_RECORDS records, across the
+    blocks' edges (a small block waits for the next ones, or for
+    ``close()``); each chunk is formatted (the native C formatter; without
+    it, the same "%.7g" text made in Python on the calling thread) and
+    deflated at level 6 into one complete gzip member. With
+    ``threaded=True`` a pool of :func:`pool_workers` threads does that
+    (the formatter and zlib both release the GIL, so the workers overlap
+    each other and the device work the main thread waits on) and one
+    writer thread appends the members to the file in chunk order; at most
+    MAX_CHUNKS_IN_FLIGHT chunks wait, so a fast producer blocks in
+    ``write_block``. With ``threaded=False`` the
+    calling thread does it all. ``close()`` writes every queued chunk, so
+    the file ends on a member boundary (a checkpoint's offset). The
+    formatter's and deflate's time goes to ``spans`` as FORMAT and DEFLATE
+    spans, with the span that began the chunk as parent; the members
+    written and the workers' busy wall to its CHUNKS and BUSY counters."""
 
     def __init__(self, path: str, fam_ids: List[str], iids: List[str],
                  chr_number: int, append: bool = False,
                  threaded: bool = True,
                  spans: Optional[SpanRecorder] = None):
-        # compresslevel 6 = the zlib default the reference's gzofstream uses
-        # (Python's gzip defaults to 9, ~3x slower deflate — it was ~7 s
-        # of the 98k-hap e2e output phase for a 2% size difference)
-        self._f = gzip.open(path, "at" if append else "wt", compresslevel=6)
+        self._raw = open(path, "ab" if append else "wb")
+        self._append = append
         self.fam = fam_ids
         self.iid = iids
         self.chr = chr_number
         self.n_written = 0
         self._id_blob = None          # lazy native-formatter id table
         self._id_off = None
-        self._text_dirty = False      # text-wrapper bytes pending flush
-        # the formatter's and gzip's deflate spans (FORMAT, DEFLATE)
         self.spans = spans if spans is not None else SpanRecorder()
+        self._lock = threading.Lock()
+        self._active = 0              # workers formatting or deflating
+        self._busy_t0 = 0
+        self._members = 0
+        self._err = None
+        # the chunk being filled: pieces of blocks (columns, or the Python
+        # fallback's text), their records, the span that began it
+        self._chunk: list = []
+        self._chunk_n = 0
+        self._chunk_parent = None
+        # the pool's threads (0: the calling thread does the work)
+        self.workers = pool_workers() if threaded else 0
         self._q = None
-        self._thr = None
-        self._thr_err = None
-        if threaded:
-            self._q = queue.Queue(maxsize=64)
-            self._thr = threading.Thread(target=self._deflate_loop,
-                                         name="fastsmc-deflate",
-                                         daemon=True)
+        if self.workers:
+            self._pool = ThreadPoolExecutor(
+                self.workers, thread_name_prefix="fastsmc-deflate")
+            self._q = queue.Queue(maxsize=MAX_CHUNKS_IN_FLIGHT)
+            self._thr = threading.Thread(target=self._write_loop,
+                                         name="fastsmc-write", daemon=True)
             self._thr.start()
 
     @property
@@ -93,122 +146,150 @@ class IbdTextWriter:
         """Seconds in gzip's deflate, the total of the DEFLATE spans."""
         return self.spans.total_s(DEFLATE)
 
-    def _deflate_loop(self):
-        while True:
-            item = self._q.get()
-            try:
-                if item is None:
-                    return
-                if self._thr_err is not None:
-                    continue            # after an error: drop, still done
-                # deferred bulk format: ctypes releases the GIL, so
-                # formatting joins deflate on this thread; the spans' parent
-                # is the span that queued the block
-                parent, cols = item
-                with self.spans.span(FORMAT, parent):
+    @contextlib.contextmanager
+    def _busy(self):
+        """Inside a FORMAT or DEFLATE span: the BUSY counter gains the wall
+        from the first worker in to the last one out."""
+        with self._lock:
+            if self._active == 0:
+                self._busy_t0 = time.perf_counter_ns()
+            self._active += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._active -= 1
+                if self._active == 0:
+                    self.spans.add(BUSY, (time.perf_counter_ns()
+                                          - self._busy_t0) * 1e-9)
+
+    def _member(self, parent: Optional[str], chunk: list) -> bytes:
+        """One chunk as a complete gzip member at level 6, the zlib
+        default the reference's gzofstream uses (Python's gzip defaults to
+        9: ~3x slower deflate for a 2 % smaller file). Each piece of
+        ``chunk`` is text, or columns for the native formatter."""
+        text = []
+        for piece in chunk:
+            if not isinstance(piece, bytes):
+                with self.spans.span(FORMAT, parent), self._busy():
                     buf = native.format_ibd(self._id_blob, self._id_off,
-                                            *cols[:8], str(self.chr),
-                                            *cols[8:])
+                                            *piece[:8], str(self.chr),
+                                            *piece[8:])
                 if buf is None:
                     raise RuntimeError(
-                        f"native IBD formatter returned no output for a "
-                        f"block of {len(cols[0])} records")
-                with self.spans.span(DEFLATE, parent):
-                    self._f.buffer.write(buf)
+                        f"native IBD formatter returned no output for "
+                        f"{len(piece[0])} records")
+                piece = buf
+            text.append(piece)
+        with self.spans.span(DEFLATE, parent), self._busy():
+            return gzip.compress(b"".join(text), 6, mtime=0)
+
+    def _write(self, member: bytes) -> None:
+        self._raw.write(member)
+        self._members += 1
+        self.spans.add(CHUNKS)
+
+    def _write_loop(self):
+        """The members in chunk order; after an error, the chunks left
+        are still taken (and dropped) so that close() does not hang."""
+        while True:
+            fut = self._q.get()
+            try:
+                if fut is None:
+                    return
+                member = fut.result()
+                if self._err is None:
+                    self._write(member)
             except BaseException as e:      # raised on the main thread
-                self._thr_err = e
+                if self._err is None:
+                    self._err = e
             finally:
                 self._q.task_done()
 
-    def _sync_q(self):
-        """Drain queued bulk writes (ordering barrier before a direct text
-        write)."""
-        if self._q is not None:
-            self._q.join()
-            if self._thr_err is not None:
-                raise self._thr_err
-
-    def write_block(self, ind1, hap1, ind2, hap2, pos_start, pos_end,
-                    length_cm, score, post_est=None, map_est=None) -> None:
-        """Bulk write from column arrays, one record per row. Uses the
-        native C formatter when available (the same "%.7g" printf as the
-        Python fallback).
-        ``length_cm`` / ``post_est`` / ``map_est`` may be None (column
-        omitted) or float32 arrays; ``score`` is float64 (matching the
-        per-record float division)."""
-        n = len(ind1)
-        if n == 0:
-            return
-        if native.get_lib() is not None:
-            if self._id_blob is None:
-                off = [0]
-                blob = bytearray()
-                for f_, i_ in zip(self.fam, self.iid):
-                    blob += f"{f_}\t{i_}".encode() + b"\0"
-                    off.append(len(blob))
-                self._id_blob = bytes(blob)
-                self._id_off = np.asarray(off, np.int32)
-            if self._text_dirty:
-                # order text-wrapper bytes before ours; skipping the flush
-                # when clean avoids a Z_SYNC_FLUSH per flushed batch
-                self._f.flush()
-                self._text_dirty = False
-            if self._q is not None:
-                # format AND deflate on the writer thread (both release
-                # the GIL); the column arrays are never mutated after
-                # emit, so referencing them is safe. FIFO order with
-                # direct writes is preserved by _sync_q.
-                if self._thr_err is not None:
-                    raise self._thr_err
-                self._q.put((self.spans.current(),
-                             (ind1, hap1, ind2, hap2, pos_start, pos_end,
-                              length_cm, score, post_est, map_est)))
-                self.n_written += n
-                return
-            with self.spans.span(FORMAT):
-                buf = native.format_ibd(self._id_blob, self._id_off, ind1,
-                                        hap1, ind2, hap2, pos_start, pos_end,
-                                        length_cm, score, str(self.chr),
-                                        post_est, map_est)
-            if buf is None:
-                raise RuntimeError(f"native IBD formatter returned no "
-                                   f"output for a block of {n} records")
-            with self.spans.span(DEFLATE):
-                self._f.buffer.write(buf)
-            self.n_written += n
-            return
+    def _format_py(self, ind1, hap1, ind2, hap2, pos_start, pos_end,
+                   length_cm, score, post_est, map_est) -> bytes:
+        """The records' text without the native library."""
         fam, iid, ch = self.fam, self.iid, str(self.chr)
         out = []
-        has_len = length_cm is not None
-        for j in range(n):
+        for j in range(len(ind1)):
             i1 = ind1[j]
             i2 = ind2[j]
             parts = [fam[i1], iid[i1], str(hap1[j]), fam[i2], iid[i2],
                      str(hap2[j]), ch, str(pos_start[j]), str(pos_end[j])]
-            if has_len:
+            if length_cm is not None:
                 parts.append("%.7g" % length_cm[j])
             parts.append("%.7g" % score[j])
             if post_est is not None:
                 parts.append("%.7g" % post_est[j])
             if map_est is not None:
                 parts.append("%.7g" % map_est[j])
-            out.append("\t".join(parts))
-        self._sync_q()
-        self._f.write("\n".join(out) + "\n")
-        self.n_written += len(out)
-        self._text_dirty = True
+            out.append("\t".join(parts) + "\n")
+        return "".join(out).encode()
+
+    def write_block(self, ind1, hap1, ind2, hap2, pos_start, pos_end,
+                    length_cm, score, post_est=None, map_est=None) -> None:
+        """Bulk write from column arrays, one record per row, in order
+        after every block written before.
+        ``length_cm`` / ``post_est`` / ``map_est`` may be None (column
+        omitted) or float32 arrays; ``score`` is float64 (matching the
+        per-record float division). The column arrays must not change
+        until ``close()``: the workers read them."""
+        n = len(ind1)
+        if n == 0:
+            return
+        if self._err is not None:
+            raise self._err
+        has_lib = native.get_lib() is not None
+        if has_lib and self._id_blob is None:
+            off = [0]
+            blob = bytearray()
+            for f_, i_ in zip(self.fam, self.iid):
+                blob += f"{f_}\t{i_}".encode() + b"\0"
+                off.append(len(blob))
+            self._id_blob = bytes(blob)
+            self._id_off = np.asarray(off, np.int32)
+        cols = (ind1, hap1, ind2, hap2, pos_start, pos_end, length_cm,
+                score, post_est, map_est)
+        a = 0
+        while a < n:
+            if not self._chunk:
+                self._chunk_parent = self.spans.current()
+            b = min(n, a + CHUNK_RECORDS - self._chunk_n)
+            piece = tuple(None if c is None else c[a:b] for c in cols)
+            self._chunk.append(piece if has_lib else self._format_py(*piece))
+            self._chunk_n += b - a
+            a = b
+            if self._chunk_n == CHUNK_RECORDS:
+                self._submit()
+        self.n_written += n
+
+    def _submit(self):
+        """Queue the chunk being filled (with no pool, write it)."""
+        chunk, parent = self._chunk, self._chunk_parent
+        self._chunk, self._chunk_n = [], 0
+        if self._q is None:
+            self._write(self._member(parent, chunk))
+        else:
+            self._q.put(self._pool.submit(self._member, parent, chunk))
 
     def close(self):
-        """Drain the queue, stop the thread and close the file; raise the
-        writer thread's error, if it had one."""
+        """Write every queued chunk and the one being filled, stop the
+        threads and close the file; raise a worker's error, if one had
+        one."""
+        if self._chunk and self._err is None:
+            self._submit()
         if self._q is not None:
             self._q.join()
             self._q.put(None)
             self._thr.join()
+            self._pool.shutdown()
             self._q = None
-        self._f.close()
-        if self._thr_err is not None:
-            raise self._thr_err
+        if self._members == 0 and not self._append and self._err is None:
+            # no record: still a gzip file, as the reference's empty one
+            self._raw.write(gzip.compress(b"", 6, mtime=0))
+        self._raw.close()
+        if self._err is not None:
+            raise self._err
 
 
 class IbdBinaryWriter:

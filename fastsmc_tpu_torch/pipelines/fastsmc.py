@@ -671,8 +671,9 @@ class FastSMC:
             self.n_segments += len(pair)
 
     def _write_progress(self, done_idx: int):
-        """Checkpoint (fastsmc.py:872-899): close the current gzip member
-        so the file is valid up to here, record (finished batches,
+        """Checkpoint (fastsmc.py:872-899): close the writer, which writes
+        every queued gzip member, so the file is valid up to here and ends
+        on a member boundary, record (finished batches,
         segments, byte offset), and reopen in append mode; the reopened
         writer records into the same spans."""
         with self.timer.span("fastsmc.checkpoint"):
@@ -690,8 +691,10 @@ class FastSMC:
         """Host terms of a finished run (fastsmc.py:980-996): megabytes
         copied from the card, then seconds from the spans: the drain's wait
         on the card and its own host time (its span less the waits), the
-        batcher's and the checkpoints', the writer's format and deflate and
-        the scan thread's."""
+        batcher's and the checkpoints', the writer's format and deflate
+        (thread-seconds, summed over its workers) and the scan thread's;
+        then the text writer's worker threads, the gzip members it wrote
+        and the wall seconds in which at least one worker was busy."""
         sp = self.timer
         wait = sp.total_s("fastsmc.drain.wait")
         return {
@@ -703,6 +706,9 @@ class FastSMC:
             "writer_fmt_s": sp.total_s(writers.FORMAT),
             "writer_deflate_s": sp.total_s(writers.DEFLATE),
             "scan_thread_s": sp.total_s(SCAN),
+            "writer_workers": getattr(self._writer, "workers", 0),
+            "writer_chunks": int(sp.counter(writers.CHUNKS)),
+            "writer_busy_s": sp.counter(writers.BUSY),
         }
 
     # ------------------------------------------------------------------

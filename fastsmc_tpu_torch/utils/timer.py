@@ -54,6 +54,7 @@ class SpanRecorder:
             self.t0 = time.perf_counter_ns()
             self._stats: Dict[str, list] = {}   # [count, ns, self ns, parents]
             self._top: Dict[str, int] = {}      # root's children: ns
+            self._counters: Dict[str, float] = {}
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -111,6 +112,17 @@ class SpanRecorder:
         with self._lock:
             st = self._stats.get(name)
             return st[1] * 1e-9 if st else 0.0
+
+    def add(self, name: str, value: float = 1.0) -> None:
+        """Add ``value`` to the counter ``name``: a sum kept beside the
+        spans, from any thread, and forgotten with them by :meth:`reset`."""
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0.0) + value
+
+    def counter(self, name: str) -> float:
+        """The counter ``name`` (0 if never added to)."""
+        with self._lock:
+            return self._counters.get(name, 0.0)
 
     def total(self) -> float:
         """Seconds of the root span, or since :meth:`reset` while none has

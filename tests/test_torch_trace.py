@@ -84,9 +84,10 @@ def test_nesting_parents_and_self_time():
 
 
 def test_worker_thread_span_is_linked_not_nested(tmp_path, monkeypatch):
-    """The writer thread's spans stay in memory with the emit that queued
-    the block as parent; their time is not taken from the emit's self
-    time, which runs on another thread."""
+    """The writer's worker spans stay in memory with the emit that began
+    the chunk as parent; their time is not taken from the emit's self
+    time, which runs on another thread. The three small blocks share one
+    chunk: three formats, one deflate."""
     def slow(id_blob, id_off, ind1, *rest):
         time.sleep(0.05)
         return b"record\n" * len(ind1)
@@ -106,7 +107,7 @@ def test_worker_thread_span_is_linked_not_nested(tmp_path, monkeypatch):
     w.close()
     st = rec.stats()
     assert st["fastsmc.writer.format"].parents == {"fastsmc.emit": 3}
-    assert st["fastsmc.writer.deflate"].parents == {"fastsmc.emit": 3}
+    assert st["fastsmc.writer.deflate"].parents == {"fastsmc.emit": 1}
     assert w.fmt_s == rec.total_s("fastsmc.writer.format") >= 0.15
     assert st["fastsmc.emit"].self_s == st["fastsmc.emit"].total_s < 0.1
 
@@ -217,6 +218,12 @@ def test_roofline_host_seconds_are_span_totals(tiny_panel, repo_root,
     assert got["writer_deflate_s"] == sp.total_s("fastsmc.writer.deflate") > 0
     assert got["scan_thread_s"] == sp.total_s("fastsmc.scan") > 0
     assert got["writer_fmt_s"] == f._writer.fmt_s
+    # the pool: its threads, the members it wrote, its busy wall
+    assert got["writer_workers"] == f._writer.workers >= 1
+    assert got["writer_chunks"] == sp.counter(writers.CHUNKS) \
+        == sp.stats()["fastsmc.writer.deflate"].count > 0
+    assert 0 < got["writer_busy_s"] == sp.counter(writers.BUSY) \
+        <= got["writer_fmt_s"] + got["writer_deflate_s"]
     # the run's breakdown: its direct children, inside its wall
     tops = sp.totals()
     assert {"fastsmc.dispatch", "fastsmc.drain", "fastsmc.emit",
