@@ -3,6 +3,8 @@ draws of the undistinguished counts, the emissions and operators, the
 pairs of a job, and the decode (tests may import the program; the
 reference under gpubench/reference/ does not)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,18 @@ from gpubench.harness import ROOT
 from gpubench.reference import hmm, ibd, jobs, model
 
 DQ = str(ROOT / "artifacts" / "n300.array.decodingQuantities.npz")
+CSFS_TABLES = ("csfs", "folded_csfs", "ascertained_csfs",
+               "folded_ascertained_csfs")
+
+
+def guarded_quantities(path: str) -> DecodingQuantities:
+    """The program's quantities with the first step of the reference's
+    guard: every negative entry of the four CSFS tables set to 0
+    (``model.class_emissions``). The program loads them unguarded, as ASMC
+    does."""
+    dq = DecodingQuantities.load(path)
+    return dataclasses.replace(
+        dq, **{k: model.nonnegative(getattr(dq, k)) for k in CSFS_TABLES})
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +152,8 @@ def test_map_gap_names_the_state_the_age_picks():
 
 def test_emissions_are_the_float32_sums_of_the_algorithms_tables():
     """On the benchmark's own panel, with its singletons: each class's
-    emission is the program's float32 sum of its tables, bit for bit."""
+    emission is the program's float32 sum of its tables, bit for bit, once
+    the program's tables and sums carry the reference's guard."""
     from fastsmc_tpu_torch.config import DecodingParams
     from fastsmc_tpu_torch.io.haps import Data
     from gpubench import harness, panel
@@ -150,10 +165,65 @@ def test_emissions_are_the_float32_sums_of_the_algorithms_tables():
     assert isinstance(data, Data) and (pan.dac == 1).any()
     p = DecodingParams(in_file_root="x", decoding_quant_file=DQ,
                        **cell.config["params"]).finalize()
-    ctx = DecodeContext.build(p, data, DecodingQuantities.load(DQ))
+    ctx = DecodeContext.build(p, data, guarded_quantities(DQ))
     m = model.build_model(DQ, pan.genetic_positions, pan.dac,
                           np.full(pan.sites, pan.haplotypes), 1234)
     e = ctx.emissions
     major = e.em1 + e.em0minus1
-    want = np.stack([e.em1, major, major + e.em2minus0], axis=1)
+    # the guard's second step: the class sums zeroed where negative
+    want = model.nonnegative(
+        np.stack([e.em1, major, major + e.em2minus0], axis=1))
     assert np.array_equal(m.emission, want.astype(np.float64))
+
+
+def test_class_emissions_have_no_negatives(monkeypatch):
+    """Both ways the unguarded float32 emissions go negative: a differ row
+    that reads the table's rounding negatives (undistinguished count 11,
+    young states), and a both-minor sum that is the rounding of [u0][0]
+    where [u2][0] lies far below it (counts 3, 1, 0, old states)."""
+    table = np.asarray(np.load(DQ)["folded_ascertained_csfs"], np.float32)
+    und = np.array([[12, 11, 10], [3, 1, 0]], np.int64)
+    assert model.class_emissions(table, und).min() >= 0
+    monkeypatch.setattr(model, "nonnegative", lambda x: x)
+    raw = model.class_emissions(table, und)
+    assert raw[0, 0].min() < 0 and raw[1, 2].min() < 0
+
+
+def test_table_is_guarded_before_the_sums(monkeypatch):
+    """The table's negatives are zeroed before the float32 sums, not only
+    the sums after: a differ entry of -3e-8 beside a both-major entry of 1
+    leaves both major at 1 exactly (the raw sum rounds to 1 - 2^-24)."""
+    table = np.full((3, 2, 1), 0.5, np.float32)
+    table[1, 1, 0], table[0, 0, 0] = -3e-8, 1.0
+    und = np.array([[0, 1, 2]], np.int64)
+    assert model.class_emissions(table, und)[0, 1, 0] == 1.0
+    monkeypatch.setattr(model, "nonnegative", lambda x: x)
+    assert model.class_emissions(table, und)[0, 1, 0] == np.float32(
+        1 - 2 ** -24)
+
+
+def test_guarded_posteriors_stay_in_the_unit_interval(monkeypatch):
+    """On a 1,024-haplotype mosaic of the example panel (1,000 sites), 256
+    pairs decoded in float64: guarded, every posterior lies in [0, 1];
+    with ASMC's unguarded tables some go below -1e-6."""
+    from gpubench import harness, panel
+    traffic = harness.load_cell("fastsmc_example_allpairs").traffic
+    f = traffic["panel"]["founders"]
+    pan = panel.make_panel(dict(
+        haplotypes=1024, sites=1000, mosaic=True, switch_per_morgan=133.3,
+        noise=2.65e-4,
+        hap_path=harness.checked_file(f["haps"], f["haps_sha256"]),
+        map_path=harness.checked_file(f["map"], f["map_sha256"])), 1, "cpu")
+    s, e = jobs.job_range(pan.haplotypes // 2, 1, 1)
+    rng = np.random.default_rng(0)
+    h1, h2 = jobs.pairs(np.sort(rng.choice(e - s, 256, replace=False)))
+
+    def posterior():
+        m = model.build_model(DQ, pan.genetic_positions, pan.dac,
+                              np.full(pan.sites, pan.haplotypes), 1234)
+        return hmm.Decoder(m, pan.bits, "float64").posterior(h1, h2)[0]
+
+    post = posterior()
+    assert post.min() >= -1e-12 and post.max() <= 1 + 1e-12
+    monkeypatch.setattr(model, "nonnegative", lambda x: x)
+    assert posterior().min() < -1e-6
