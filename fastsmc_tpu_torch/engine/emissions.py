@@ -9,7 +9,8 @@ combination
 
 which reproduces the reference's ``getEmission`` lookup for every
 (distinguished, undistinguished) case. The port's copy of
-``fastsmc_tpu/engine/emissions.py``.
+``fastsmc_tpu/engine/emissions.py``, with one departure on purpose: no
+emission is negative (:func:`prepare_emissions` says where and why).
 """
 
 from __future__ import annotations
@@ -48,8 +49,48 @@ def csfs_positions(genetic_positions: np.ndarray, skip_csfs_distance: float
     return use
 
 
+def nonnegative(x: np.ndarray) -> np.ndarray:
+    """float32 ``x`` with every negative entry set to +0.0."""
+    return np.where(x < 0, np.float32(0.0), x)
+
+
+def raise_negative_sums(em1: np.ndarray, em0minus1: np.ndarray,
+                        em2minus0: np.ndarray):
+    """The guard's second step: where a class's float32 sum is below 0,
+    both major ``em1 + em0minus1`` first, then both minor ``(em1 +
+    em0minus1) + em2minus0`` on top of it, that class's last difference
+    becomes minus the rest of the sum, so the sum is +0.0 exactly (x + -x
+    rounds to +0.0). Returns the new ``(em0minus1, em2minus0)``."""
+    major = em1 + em0minus1
+    em0minus1 = np.where(major < 0, -em1, em0minus1)
+    major = em1 + em0minus1
+    em2minus0 = np.where(major + em2minus0 < 0, -major, em2minus0)
+    return em0minus1, em2minus0
+
+
 def prepare_emissions(data: Data, dq: DecodingQuantities,
                       params: DecodingParams) -> EmissionTables:
+    """The three component tables of every site, guarded.
+
+    One departure from ASMC, which uses its tables unguarded
+    (HMM.cpp:179-207), and from the JAX package, which copies it: no
+    emission is negative. The negative entries of the CSFS table the mode
+    reads are set to +0.0 before any lookup, and where a class's float32
+    sum of the components (differ ``em1``, both major ``em1 +
+    em0minus1``, both minor ``(em1 + em0minus1) + em2minus0``, added in
+    the order the kernels and the oracle add them) still falls below 0,
+    that class's last difference is raised so that the sum is +0.0
+    exactly. A probability model has no negatives, and with them a pair
+    gets negative emissions where its mass lies and its posterior leaves
+    [0, 1]: the shipped CSFS tables hold rounding negatives (down to
+    -3.35e-15 in the n300 quantities), which a pair with a recent common
+    ancestor that differs at a common site reads; and where a site's
+    drawn [u2][0] lies far below [u0][0] at old states, the both-minor
+    sum is the rounding of [u0][0], down to -9.3e-10. On a
+    16,384-haplotype panel either sends posterior sums out of [0, 1]. The
+    classic tables hold no negatives and are used as they are. The
+    loader stays a faithful reader of the files; the guard acts here,
+    however the quantities were obtained."""
     L, K = data.sites, dq.states
     und = data.calculate_undistinguished_counts(dq.csfs_samples)
     use = csfs_positions(data.genetic_positions, params.skip_csfs_distance)
@@ -63,6 +104,7 @@ def prepare_emissions(data: Data, dq: DecodingQuantities,
         table = dq.folded_csfs if seq else dq.folded_ascertained_csfs
     else:
         table = dq.csfs if seq else dq.ascertained_csfs
+    table = nonnegative(table)
     classic = dq.classic_emission if seq else dq.compressed_emission
 
     u0 = und[:, 0]
@@ -98,6 +140,9 @@ def prepare_emissions(data: Data, dq: DecodingQuantities,
         dist2_d = np.where(mono, 0, 2)
         e2 = table[dist2_u, dist2_d]
         em2m0[idx] = np.where((u2i >= 0)[:, None], e2 - e0, -e0)
+
+    em0m1[idx], em2m0[idx] = raise_negative_sums(em1[idx], em0m1[idx],
+                                                 em2m0[idx])
 
     # fail fast on out-of-support CSFS lookups (e.g. unfolded data sent
     # into the folded table): those rows are all-zero, and an all-zero

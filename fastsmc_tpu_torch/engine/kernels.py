@@ -454,17 +454,21 @@ def backward_combine(Mb, em, obs, alpha, ops, mask, K: int,
 class GpuDecoder:
     """Device tables + the two kernels, with the ``PallasDecoder`` interface
     the pipelines use, in the context's decoding mode and on one of
-    :data:`PROFILES`. Given ``spans`` (FastSMC's recorder), each decode
-    records its prologue, forward and backward (with the block reduction)
-    and each fused extraction its own span there."""
+    :data:`PROFILES`. Given ``spans`` (the calling pipeline's recorder),
+    each decode records its prologue, forward and backward (with the block
+    reduction) and each fused extraction its own span there, named under
+    the caller's ``span_prefix``: ``<prefix>.decode.prologue``,
+    ``.decode.forward``, ``.decode.backward`` and ``<prefix>.extract``."""
 
     supports_fused_extract = True
 
     def __init__(self, ctx: DecodeContext, device,
                  decode_profile: str = "exact",
-                 spans: Optional[SpanRecorder] = None):
+                 spans: Optional[SpanRecorder] = None,
+                 span_prefix: str = "fastsmc"):
         _check_profile(decode_profile)
         self.spans = spans
+        self.span_prefix = span_prefix
         self.device = resolve_device(device)
         self.profile = decode_profile
         self.alpha_dtype = alpha_dtype(decode_profile)
@@ -545,20 +549,20 @@ class GpuDecoder:
 
     def _span(self, name: str):
         return contextlib.nullcontext() if self.spans is None \
-            else self.spans.span(name)
+            else self.spans.span(f"{self.span_prefix}.{name}")
 
     def _decode_body(self, hap_a, hap_b, t0: int, T: int, outs: BwdOutputs,
                      state_threshold: int) -> dict:
         t = self.tables
-        with self._span("fastsmc.decode.prologue"):
+        with self._span("decode.prologue"):
             obs, em, ops_f, ops_b, mask = self.prologue(hap_a, hap_b, t0, T)
             seq_f = seq_b = None
             if self.sequence:
                 seq_f, seq_b = self.seq_prologue(t0, T)
-        with self._span("fastsmc.decode.forward"):
+        with self._span("decode.forward"):
             alpha = forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
                             self.profile, t.split)
-        with self._span("fastsmc.decode.backward"):
+        with self._span("decode.backward"):
             return backward_combine(t.Mb, em, obs, alpha, ops_b, mask,
                                     self.K, state_threshold, outs,
                                     t.exp_times, seq_b, self.profile)
@@ -599,7 +603,7 @@ class GpuDecoder:
         r = self._decode_body(hap_a, hap_b, int(t0), int(t_len), outs,
                               int(state_threshold))
         th = r["threshold_sums"]
-        with self._span("fastsmc.extract"):
+        with self._span("extract"):
             thm = th if w0 is None else seg.mask_window(th, w0, w1)
             post = r["posterior"][:, :age_threshold] if need_ages else None
             packed, pps = seg.extract_packed(thm, s0, s1, prob_threshold,

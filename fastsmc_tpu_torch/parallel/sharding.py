@@ -94,14 +94,15 @@ class ShardedDecoder:
     """Pair-parallel decoding over a mesh with the :class:`GpuDecoder`
     interface the pipelines use (``decode_pairs``, ``decode_extract_packed``).
     The global pair batch must be a multiple of the mesh size; shard s
-    takes the s-th contiguous slice of it. ``spans`` goes to every
-    shard's decoder."""
+    takes the s-th contiguous slice of it. ``spans`` and
+    ``span_prefix`` go to every shard's decoder."""
 
     supports_fused_extract = True
 
     def __init__(self, ctx: DecodeContext, mesh: Mesh,
                  decode_profile: str = "exact",
-                 spans: Optional[SpanRecorder] = None):
+                 spans: Optional[SpanRecorder] = None,
+                 span_prefix: str = "fastsmc"):
         self.ctx = ctx
         self.mesh = mesh
         self.devices = mesh.devices
@@ -111,7 +112,7 @@ class ShardedDecoder:
             if dev not in self.decoders:
                 with on_device(dev):
                     self.decoders[dev] = GpuDecoder(ctx, dev, decode_profile,
-                                                    spans)
+                                                    spans, span_prefix)
         self.alpha_dtype = self.shard_decoder(0).alpha_dtype
         self.L = self.shard_decoder(0).L
 

@@ -316,6 +316,24 @@ def test_batch_shrinks_to_the_memory_budget(panel, tmp_path):
     assert a.batch_size == 8192
 
 
+def test_free_memory_counts_the_allocators_unused_blocks(monkeypatch):
+    """The budget's free memory is the card's and what the caching
+    allocator holds unused: a previous job's cached blocks (here 30 GiB
+    reserved, 1 GiB of it in tensors) do not shrink the next job's
+    batch."""
+    GiB = 1 << 30
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev: (40 * GiB, 80 * GiB))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev: 30 * GiB)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: GiB)
+    free = asmc.free_bytes(torch.device("cuda", 0))
+    assert free == 69 * GiB
+    # the biobank cell's batch of 8,192 at 6,759 sites: capped by the
+    # card's free memory alone, not once the cached blocks count
+    assert asmc.max_batch(40 * GiB, 6759, 69) < 8192 \
+        <= asmc.max_batch(free, 6759, 69)
+
+
 def _records(path):
     with gzip.open(path, "rt") as fh:
         return [line.split("\t") for line in fh.read().splitlines()]

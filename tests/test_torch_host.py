@@ -8,7 +8,11 @@ is built here from the same files and seeds and must give the same bits:
 every comparison is exact.
 
 The helpers at the top build the two sides' objects for the other test
-files: the JAX package's for the reference, the port's for the port.
+files: the JAX package's for the reference, the port's for the port. One
+departure is on purpose: the port guards its CSFS emissions, which the
+JAX package, like ASMC, uses unguarded (``engine/emissions.py``). Where
+the two sides' emissions meet, the JAX side is given the guarded inputs
+(``guarded_jax_quantities``, ``guard_jax_sums``).
 """
 
 import dataclasses
@@ -57,14 +61,55 @@ def jax_params(p: DecodingParams) -> JaxParams:
     return JaxParams(**dataclasses.asdict(p))
 
 
+CSFS_TABLES = ("csfs", "folded_csfs", "ascertained_csfs",
+               "folded_ascertained_csfs")
+
+
+def guarded_jax_quantities(dq: JaxQuantities) -> JaxQuantities:
+    """The JAX package's quantities with the port's first guard step:
+    every negative entry of the four CSFS tables set to +0.0."""
+    return dataclasses.replace(dq, **{
+        k: np.where(getattr(dq, k) < 0, np.float32(0.0), getattr(dq, k))
+        for k in CSFS_TABLES})
+
+
+def guard_jax_sums(e):
+    """The port's second guard step on the JAX package's emission tables
+    ``e``, in place, and ``e``: at the CSFS sites, where both major
+    ``em1 + em0minus1`` and then both minor ``(em1 + em0minus1) +
+    em2minus0`` is below 0 in float32, the class's last difference
+    becomes minus the rest of the sum."""
+    i = e.use_csfs_at
+    em1, d0, d2 = e.em1[i], e.em0minus1[i], e.em2minus0[i]
+    major = em1 + d0
+    d0 = np.where(major < 0, -em1, d0)
+    major = em1 + d0
+    e.em0minus1[i] = d0
+    e.em2minus0[i] = np.where(major + d2 < 0, -major, d2)
+    return e
+
+
+def guarded_jax_emissions(prepare):
+    """The JAX package's ``prepare_emissions`` with the port's guard: the
+    function to patch over ``fastsmc_tpu.engine.oracle.prepare_emissions``
+    where a JAX pipeline builds its own context."""
+    def guarded(data, dq, params):
+        return guard_jax_sums(prepare(data, guarded_jax_quantities(dq),
+                                      params))
+    return guarded
+
+
 def contexts(params: JaxParams, load_params: JaxParams = None):
     """(JAX, port) ``DecodeContext`` of one configuration, each side with
     its own panel and decoding quantities read from ``params``' files (the
     panel as ``load_params`` reads it, where given: e.g. with
-    ``fastsmc=True`` for a FastSMC-format map)."""
+    ``fastsmc=True`` for a FastSMC-format map). The JAX side's emissions
+    carry the port's guard: its quantities are guarded before the build
+    and its class sums after."""
     lp = params if load_params is None else load_params
-    jctx = JaxContext.build(params, jax_load_data(lp),
-                            JaxQuantities.load(params.decoding_quant_file))
+    jctx = JaxContext.build(params, jax_load_data(lp), guarded_jax_quantities(
+        JaxQuantities.load(params.decoding_quant_file)))
+    guard_jax_sums(jctx.emissions)
     q = port_params(params)
     ctx = DecodeContext.build(q, load_data(port_params(lp)),
                               DecodingQuantities.load(q.decoding_quant_file))
@@ -155,7 +200,9 @@ def test_decoding_quantities_equal(name, repo_root):
 def test_decode_context_tables_equal(mode, repo_root):
     """The tables the decoders are built from, bit for bit: the dense
     operators, the emissions, the operator indices, the expected times and
-    the initial state probabilities."""
+    the initial state probabilities. The JAX side's emissions carry the
+    port's guard (``contexts``): built from quantities whose CSFS tables
+    are zeroed where negative, then their negative class sums raised."""
     from fastsmc_tpu.engine.dense import build_dense_operators as jax_dense
 
     from fastsmc_tpu_torch.engine.dense import build_dense_operators

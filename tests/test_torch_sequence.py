@@ -35,6 +35,15 @@ repository root, with::
         "tests/fixtures/example_array.seq_asmc_job7of100.npz",
         **{f: getattr(r, f) for f in ("sum_over_pairs", "sum_over_pairs00",
                                       "sum_over_pairs01", "sum_over_pairs11")})
+    # the FastSMC golden: the JAX side given the port's emission guard,
+    # which moves its scores by up to 1 % where they are small (the sums
+    # golden, made before the guard, lies within its tolerance of it)
+    import sys
+    sys.path.insert(0, "tests")
+    from fastsmc_tpu.engine import oracle
+    from test_torch_host import guarded_jax_emissions
+    oracle.prepare_emissions = guarded_jax_emissions(
+        oracle.prepare_emissions)
     p = DecodingParams.fastsmc_defaults(root, dq, "/tmp/seq/ex",
                                         use_known_seed=True,
                                         decoding_mode="sequence")
