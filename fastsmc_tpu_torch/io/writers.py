@@ -31,6 +31,11 @@ the writer thread there fails on ``write(None)`` and exits with items still
 queued, so the next ``Queue.join()`` never returns. This writer names the
 formatter's failure, keeps taking the chunks left after an error, and
 raises the error from ``close()`` instead of hanging.
+
+The ``.sumOverPairs.gz`` files are members too, of SUMS_CHUNK_ROWS rows
+each: :func:`write_sums_files` formats (the native formatter, or the same
+"%.6g" text in Python) and deflates every chunk of a job's files on one
+pool of W threads, and writes each file whole, its members in row order.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import struct
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -59,8 +64,18 @@ DEFLATE = "fastsmc.writer.deflate"
 CHUNKS = "fastsmc.writer.chunks"
 BUSY = "fastsmc.writer.busy_s"
 
+# the sums writer's spans and counters, in ASMC's recorder: a chunk's rows
+# formatted and deflated; members written, and the chunks the native
+# formatter made (0: the Python fallback ran)
+SUMS_FORMAT = "asmc.write.format"
+SUMS_DEFLATE = "asmc.write.deflate"
+SUMS_MEMBERS = "asmc.write.members"
+SUMS_NATIVE_CHUNKS = "asmc.write.native_chunks"
+
 # records per gzip member: ~0.9 MiB of text at ~92 bytes a record
 CHUNK_RECORDS = 10_000
+# rows per gzip member of a sums file: ~1.1 MiB of text at 69 states
+SUMS_CHUNK_ROWS = 2_000
 # chunks queued and not yet written; a full queue blocks the emit
 MAX_CHUNKS_IN_FLIGHT = 64
 
@@ -71,8 +86,8 @@ def _usable_cores() -> int:
 
 
 def pool_workers() -> int:
-    """W, the text writer's worker threads: one core left to the main
-    thread and the hashing scan, at most 8."""
+    """W, the text and sums writers' worker threads: one core left to the
+    main thread and the hashing scan, at most 8."""
     return max(1, min(8, _usable_cores() - 1))
 
 
@@ -523,10 +538,86 @@ def _eigen_tab_format(mat: np.ndarray) -> str:
     return "\n".join(lines)
 
 
+def _sums_member(path: str, block: np.ndarray, r0: int, use_native: bool,
+                 spans: SpanRecorder, parent: Optional[str]) -> bytes:
+    """Rows ``r0`` on of ``path``'s matrix (``block``) as one complete gzip
+    member at level 6: formatted by the native library, or by the Python
+    "%.6g" loop without it (the same bytes)."""
+    with spans.span(SUMS_FORMAT, parent):
+        if use_native:
+            text = native.format_sums(block)
+            if text is None:
+                raise RuntimeError(
+                    f"native sums formatter returned no output for rows "
+                    f"{r0}-{r0 + len(block)} of {path}")
+            spans.add(SUMS_NATIVE_CHUNKS)
+        else:
+            text = (_eigen_tab_format(block) + "\n").encode()
+    with spans.span(SUMS_DEFLATE, parent):
+        return gzip.compress(text, 6, mtime=0)
+
+
+def write_sums_files(mats: Dict[str, np.ndarray],
+                     spans: Optional[SpanRecorder] = None) -> int:
+    """Write each ``{path: matrix}`` as a ``.sumOverPairs.gz`` file: the
+    matrix's rows in Eigen tab format (main.cpp:119-167), as a series of
+    complete gzip members of SUMS_CHUNK_ROWS rows each, in row order.
+
+    Every file's chunks are formatted and deflated at once on a pool of
+    :func:`pool_workers` threads (with W = 1 the calling thread does it
+    all, in order); each file is written whole once its members are done,
+    so a chunk's failure raises, names the file, and leaves no part of it
+    written. A matrix with no rows gives one member of "\\n", the text of
+    the single-stream writer. The FORMAT and DEFLATE spans go to ``spans``
+    with the caller's open span as parent, the members written and the
+    chunks the native formatter made to its counters. Returns W."""
+    spans = spans if spans is not None else SpanRecorder()
+    parent = spans.current()
+    use_native = native.get_lib() is not None
+    workers = pool_workers()
+    chunks = {path: [(path, m[r0:r0 + SUMS_CHUNK_ROWS], r0, use_native,
+                      spans, parent)
+                     for r0 in range(0, len(m), SUMS_CHUNK_ROWS)]
+              for path, m in mats.items()}
+    if workers == 1:
+        for path, args in chunks.items():
+            _write_sums_file(path, [_sums_member(*a) for a in args], spans)
+        return workers
+    pool = ThreadPoolExecutor(workers, thread_name_prefix="asmc-sums")
+    try:
+        futures = {path: [pool.submit(_sums_member, *a) for a in args]
+                   for path, args in chunks.items()}
+        for path, fs in futures.items():
+            _write_sums_file(path, [f.result() for f in fs], spans)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return workers
+
+
+def _write_sums_file(path: str, members: List[bytes],
+                     spans: SpanRecorder) -> None:
+    """``path`` as ``members`` in order; with none, the member of "\\n"."""
+    members = members or [gzip.compress(b"\n", 6, mtime=0)]
+    with open(path, "wb") as fh:
+        fh.writelines(members)
+    spans.add(SUMS_MEMBERS, len(members))
+
+
 def write_sum_over_pairs(path: str, mat: np.ndarray) -> None:
-    with gzip.open(path, "wt") as f:
-        f.write(_eigen_tab_format(mat))
-        f.write("\n")
+    write_sums_files({path: mat})
+
+
+def major_minor_files(out_root: str, sums00: np.ndarray, sums01: np.ndarray,
+                      sums11: np.ndarray, flipped: np.ndarray
+                      ) -> Dict[str, np.ndarray]:
+    """main.cpp:126-165: the three major/minor files' paths and matrices;
+    00/11 matrices swap rows where the site was flipped during
+    minor-allele folding."""
+    m00 = np.where(flipped[:, None], sums11, sums00)
+    m11 = np.where(flipped[:, None], sums00, sums11)
+    return {out_root + ".00.sumOverPairs.gz": m00,
+            out_root + ".01.sumOverPairs.gz": sums01,
+            out_root + ".11.sumOverPairs.gz": m11}
 
 
 def write_major_minor_sums(out_root: str, sums00: np.ndarray,
@@ -534,9 +625,5 @@ def write_major_minor_sums(out_root: str, sums00: np.ndarray,
                            flipped: np.ndarray) -> None:
     """main.cpp:126-165: 00/11 matrices swap rows where the site was flipped
     during minor-allele folding."""
-    sites = sums00.shape[0]
-    m00 = np.where(flipped[:, None], sums11, sums00)
-    m11 = np.where(flipped[:, None], sums00, sums11)
-    write_sum_over_pairs(out_root + ".00.sumOverPairs.gz", m00)
-    write_sum_over_pairs(out_root + ".01.sumOverPairs.gz", sums01)
-    write_sum_over_pairs(out_root + ".11.sumOverPairs.gz", m11)
+    write_sums_files(major_minor_files(out_root, sums00, sums01, sums11,
+                                       flipped))

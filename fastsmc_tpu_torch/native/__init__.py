@@ -1,14 +1,15 @@
 """Native (C++) host components, loaded with ctypes.
 
 The port's copy of ``fastsmc_tpu/native/``: ``fastsmc_native.cpp`` (the
-undistinguished-count sampler, the GERMLINE2 scan and the IBD record
-formatter) is compiled with the system's ``g++`` at first use into
-``build/fastsmc_tpu_torch/native/`` at the repository root, keyed by a hash
-of the source, the flags and the host's CPU (a changed source, or a
-``build/`` carried to another CPU, builds a new library: ``-march=native``
-code may not run there; an unchanged one is reused). Every entry point has a pure-Python fallback
-(``utils/cxx_rng.py``, ``hashing/germline.py``, the writers), so the
-package works without a compiler; :func:`get_lib` returns None then.
+undistinguished-count sampler, the GERMLINE2 scan, the IBD record formatter
+and the posterior-sums formatter) is compiled with the system's ``g++`` at
+first use into ``build/fastsmc_tpu_torch/native/`` at the repository root,
+keyed by a hash of the source, the flags and the host's CPU (a changed
+source, or a ``build/`` carried to another CPU, builds a new library:
+``-march=native`` code may not run there; an unchanged one is reused).
+Every entry point has a pure-Python fallback (``utils/cxx_rng.py``,
+``hashing/germline.py``, the writers), so the package works without a
+compiler; :func:`get_lib` returns None then.
 """
 
 from __future__ import annotations
@@ -173,6 +174,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
             np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
             ctypes.c_long,
         ]
+        lib.fastsmc_format_sums.restype = ctypes.c_long
+        lib.fastsmc_format_sums.argtypes = [
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+            ctypes.c_long, ctypes.c_long,
+            np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+            ctypes.c_long,
+        ]
         _lib = lib
         return _lib
 
@@ -235,6 +243,28 @@ def format_ibd(id_blob: bytes, id_off: np.ndarray, ind1, hap1, ind2, hap2,
         np.ascontiguousarray(post_est, np.float32), int(has_post),
         np.ascontiguousarray(map_est, np.float32), int(has_map),
         chr_str.encode(), out, cap)
+    if w < 0 or w > cap:
+        return None
+    return out[:w].tobytes()
+
+
+# the longest "%.6g" of a double ("-2.22507e-308") and its separator
+SUMS_BYTES_PER_VALUE = 14
+
+
+def format_sums(mat: np.ndarray) -> Optional[bytes]:
+    """A matrix's rows as posterior-sums text: each value's "%.6g" (of the
+    value as a double), tab-separated, a newline after every row; the
+    bytes of the writers' Python fallback. None if the library is
+    unavailable or its buffer was too small."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    m = np.ascontiguousarray(mat, np.float64)
+    rows, cols = m.shape
+    cap = max(rows * (cols * SUMS_BYTES_PER_VALUE + 1), 1)
+    out = np.empty(cap, np.uint8)
+    w = lib.fastsmc_format_sums(m, rows, cols, out, cap)
     if w < 0 or w > cap:
         return None
     return out[:w].tobytes()

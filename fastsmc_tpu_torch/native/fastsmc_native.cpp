@@ -10,11 +10,14 @@
 //   * the GERMLINE2 word-hashing identification scan
 //     (reference FastSMC.cpp:118-235 + HASHING/*), with insertion-ordered
 //     seed buckets and match table so the emission order matches the
-//     Python oracle implementation (hashing/germline.py) exactly.
+//     Python oracle implementation (hashing/germline.py) exactly;
+//   * the IBD record and posterior-sums text formatters of io/writers.py.
 //
 // Exposed as a small C ABI consumed via ctypes (no pybind11 dependency).
 
 #include <algorithm>
+#include <charconv>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -466,6 +469,58 @@ long fastsmc_format_ibd(long n, const char* id_blob, const int* id_off,
     // record truncated (e.g. ids longer than the 320-byte headroom) —
     // report failure so the caller falls back to the Python formatter
     if (w >= out_cap) return -1;
+  }
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// posterior-sums text (main.cpp:119-167: Eigen's default format of a float
+// matrix, values as the stream's default-float at precision 6, "\t"
+// between them, "\n" after every row)
+//
+// Python's "%.6g" of each value, the text the writers' fallback makes:
+// std::to_chars' general format at precision 6 is printf's "%.6g" in the
+// C locale; the non-finite values take Python's spellings ("nan" for
+// either sign, where printf writes "-nan"; "inf", "-inf").
+// ---------------------------------------------------------------------------
+
+static int format_g6(double v, char* out) {
+  if (std::isnan(v)) {
+    std::memcpy(out, "nan", 3);
+    return 3;
+  }
+  if (std::isinf(v)) {
+    int n = v < 0 ? 4 : 3;
+    std::memcpy(out, v < 0 ? "-inf" : "inf", n);
+    return n;
+  }
+#if defined(__cpp_lib_to_chars) && __cpp_lib_to_chars >= 201611L
+  return (int)(std::to_chars(out, out + 32, v, std::chars_format::general, 6)
+                   .ptr - out);
+#else
+  return std::snprintf(out, 32, "%.6g", v);
+#endif
+}
+
+// rows x cols row-major values; returns bytes written, or -1 if out_cap
+// is too small for them.
+long fastsmc_format_sums(const double* mat, long rows, long cols, char* out,
+                         long out_cap) {
+  long w = 0;
+  char tmp[32];
+  for (long r = 0; r < rows; r++) {
+    const double* row = mat + r * cols;
+    for (long c = 0; c < cols; c++) {
+      int n = format_g6(row[c], tmp);
+      if (out_cap - w < n + 1) return -1;
+      std::memcpy(out + w, tmp, n);
+      w += n;
+      out[w++] = c + 1 < cols ? '\t' : '\n';
+    }
+    if (cols == 0) {
+      if (out_cap - w < 1) return -1;
+      out[w++] = '\n';
+    }
   }
   return w;
 }
