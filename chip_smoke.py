@@ -4,8 +4,11 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
   1. the card (name, power limit) and the torch/CUDA versions;
-  2. build the four CUDA sources from csrc/ with nvcc, one process each,
-     and the native host library (g++; the run fails without it);
+  2. build the two CUDA libraries from csrc/ with nvcc, one process per
+     source: the decode kernels' (hmm_forward.cu, hmm_backward.cu,
+     hmm_reduce.cu), then the alpha-wall probe's (alpha_wall.cu), each
+     with its build seconds; and the native host library (g++; the run
+     fails without it);
   3. each kernel against its plain PyTorch version on the card: the forward
      kernel (alpha) and the backward kernel with all six outputs, at a
      main-path shape (T=1024, P=8192), at a window padded past the panel
@@ -67,12 +70,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      sequence-mode sums) and fast is within PROFILE_SUM_ATOL per pair of the
      sequence-mode golden.
  13. the alpha-wall probe (fastsmc_tpu_torch.probes.alpha_wall, run before
-     the legs of 4.-12.): the forward and backward kernels' eight
-     instantiations' ptxas lines and SASS counts (each densest loop must
-     hold HGMMA or HMMA, and fewer than ALPHA_WALL_FFMA_MAX FFMA); its six
-     variants' kernels against their plain versions at the probe's shape
-     (T=4096, P=8192, KC=128, KA=72, S=8)
-     and with P=8187 (raw alpha within ALPHA_WALL_FWD_RTOL, the backward
+     the legs of 4.-12.): from the probe's own library, the forward and
+     backward kernels' eight instantiations' ptxas lines and SASS counts
+     (each densest loop must hold HGMMA or HMMA, and fewer than
+     ALPHA_WALL_FFMA_MAX FFMA); its six variants' kernels against their
+     plain versions at the probe's shape (T=4096, P=8192, KC=128, KA=72,
+     S=8) and with P=8187 (raw alpha within ALPHA_WALL_FWD_RTOL, the backward
      output within ALPHA_WALL_BWD_ATOL, its raw carry after site 1 within
      ALPHA_WALL_CARRY_RTOL; two wrongly normalising forwards must miss the
      alpha gate, a wrongly normalising backward the carry gate), then the
@@ -931,8 +934,9 @@ def alpha_wall_sass(info) -> dict:
     return rows
 
 
-def alpha_wall_phase(kernels, info):
-    """Phase 13: the alpha-wall probe's two kernels. Each of the six
+def alpha_wall_phase(kernels):
+    """Phase 13: the alpha-wall probe's two kernels, from the probe's own
+    library: their ptxas lines and SASS counts. Each of the six
     variants against its plain version on the card at the probe's shape
     (P=8192) and with dead lanes (P=8187): alpha raw, within
     ALPHA_WALL_FWD_RTOL of the plain value at every element, the backward
@@ -951,7 +955,8 @@ def alpha_wall_phase(kernels, info):
     res = {f"alpha_wall_{k}": {"max_abs_err": 0.0, "max_rel_err": 0.0,
                                "variants": {}}
            for k in ("forward", "backward")}
-    counts = alpha_wall_sass(info)
+    from fastsmc_tpu_torch.engine import _build
+    counts = alpha_wall_sass(_build.build(aw.LIBRARY))
     for k in ("forward", "backward"):
         res[f"alpha_wall_{k}"]["sass"] = {
             n.split(" ", 1)[1]: v for n, v in counts.items()
@@ -2634,12 +2639,27 @@ def build_log(info, KP: int, K: int) -> None:
                          f"{'bf16' if approx else 'exact'}"
                          + (f", {outs}" if kind == "backward" else "") + ")")
             log(f"[build] {kind} kernel, K={K}: {line.strip()}")
-        elif fn and "alpha_wall" in fn \
-                and ("registers" in line or "spill" in line):
-            kind = "forward" if "forward" in fn else "backward"
-            every, norm = re.findall(r"Lb([01])E", fn)[:2]
-            log(f"[build] alpha-wall {kind} kernel (every site {every}, "
-                f"block normalisation {norm}): {line.strip()}")
+
+
+def build_phase():
+    """Phase 2: the two CUDA libraries, each with its build seconds (0
+    where a library of these sources existed), and the native host
+    library (without it the scale legs would run the pure-Python scan).
+    Returns the decode library's BuildInfo."""
+    from fastsmc_tpu_torch import native
+    from fastsmc_tpu_torch.engine import _build
+    from fastsmc_tpu_torch.probes.alpha_wall import LIBRARY
+    info = _build.build()
+    for name, bi in (("decode", info), ("alpha-wall probe",
+                                        _build.build(LIBRARY))):
+        log(f"[build] {name} library {bi.path.name} in {bi.seconds:.1f} s")
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError("the native host library did not build or load "
+                             f"({native.library_path()})")
+    log(f"[build] native host library {native.library_path().name} loaded "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return info
 
 
 def variant_decoders(DecodingParams, kernels, data) -> dict:
@@ -2685,22 +2705,13 @@ def main() -> int:
         f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
     os.makedirs(OUT, exist_ok=True)
 
-    from fastsmc_tpu_torch import ASMC, DecodingParams, FastSMC, native
-    from fastsmc_tpu_torch.engine import _build, kernels
+    from fastsmc_tpu_torch import ASMC, DecodingParams, FastSMC
+    from fastsmc_tpu_torch.engine import kernels
     from fastsmc_tpu_torch.io.haps import load_data
     from fastsmc_tpu_torch.probes.biobank import make_panel
     from fastsmc_tpu_torch.probes.f1 import f1_scores
 
-    # 2. build: the CUDA sources, and the native host library (without it
-    # the scale legs would run the pure-Python scan)
-    info = _build.build()
-    log(f"[build] {info.path.name} in {info.seconds:.1f} s")
-    t0 = time.perf_counter()
-    if native.get_lib() is None:
-        raise AssertionError("the native host library did not build or load "
-                             f"({native.library_path()})")
-    log(f"[build] native host library {native.library_path().name} loaded "
-        f"in {time.perf_counter() - t0:.1f} s")
+    info = build_phase()
 
     def scale_panel():
         t0 = time.perf_counter()
@@ -2753,7 +2764,7 @@ def main() -> int:
             per_leg[leg] = dict(counts)
 
     # 13. the alpha-wall probe
-    aw_rows, n = alpha_wall_phase(kernels, info)
+    aw_rows, n = alpha_wall_phase(kernels)
     kres.update(aw_rows)
     add(n, "alpha_wall_probe")
     torch.cuda.empty_cache()

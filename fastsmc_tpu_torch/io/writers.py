@@ -12,18 +12,17 @@ reference formats:
   * reader of ``.bibd.gz`` mirroring BinaryDataReader.hpp:64-185 (the
     ``convert-binary`` CLI)
 
-The text ``.ibd.gz`` is a series of complete gzip members, one per chunk
-of CHUNK_RECORDS records (about 1 MiB of text; the last of a file, or of a
-checkpoint's part, holds fewer), cut across the blocks' edges so that
-small blocks share a member: gzip readers (``gzip.open``, ``zcat``) read it
+The text ``.ibd.gz`` and the ``.sumOverPairs.gz`` files are series of
+complete gzip members, made by one mechanism, :class:`_MemberPool`: each
+chunk of text is formatted and deflated on a pool of W =
+:func:`pool_workers` threads, by the same rule for every W (at W = 1 one
+worker takes the chunks in order, never the calling thread). gzip
+readers (``gzip.open``, ``zcat``) read the members
 as one stream, so the decompressed bytes are the JAX package's, while the
-compressed bytes differ from its single stream (about 0.3 % larger). A
-pool of W worker threads formats and deflates the chunks, and one ordered
-writer thread appends the finished members in chunk order. W = max(1,
-min(8, usable cores - 1)), the cores read from the process's CPU affinity:
-one is left to the main thread and the hashing scan. With W = 1 the
-chunks are formatted and deflated one after another, in order, as the JAX
-writer's thread does its blocks.
+compressed bytes differ from its single stream (about 0.3 % larger). The
+text ``.ibd.gz`` has a member per CHUNK_RECORDS records (about 1 MiB of
+text; the last of a file, or of a checkpoint's part, holds fewer), cut
+across the blocks' edges, appended in order by one writer thread.
 
 One fault of the JAX package's text writer is repaired here: when the
 native formatter returns ``None`` (its C side refuses a truncated buffer)
@@ -32,10 +31,9 @@ queued, so the next ``Queue.join()`` never returns. This writer names the
 formatter's failure, keeps taking the chunks left after an error, and
 raises the error from ``close()`` instead of hanging.
 
-The ``.sumOverPairs.gz`` files are members too, of SUMS_CHUNK_ROWS rows
-each: :func:`write_sums_files` formats (the native formatter, or the same
-"%.6g" text in Python) and deflates every chunk of a job's files on one
-pool of W threads, and writes each file whole, its members in row order.
+The ``.sumOverPairs.gz`` files have a member per SUMS_CHUNK_ROWS rows,
+formatted natively or by the same "%.6g" text in Python; each file is
+written whole, its members in row order.
 """
 
 from __future__ import annotations
@@ -48,7 +46,7 @@ import queue
 import struct
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -86,8 +84,8 @@ def _usable_cores() -> int:
 
 
 def pool_workers() -> int:
-    """W, the text and sums writers' worker threads: one core left to the
-    main thread and the hashing scan, at most 8."""
+    """W, the member pools' worker threads: one core left to the main
+    thread and the hashing scan, at most 8."""
     return max(1, min(8, _usable_cores() - 1))
 
 
@@ -96,29 +94,87 @@ def fmt_float(x) -> str:
     return "%.7g" % float(x)
 
 
+def _gzip_member(text: bytes) -> bytes:
+    """``text`` as one complete gzip member at level 6, the zlib default
+    the reference's gzofstream uses (Python's gzip defaults to 9: ~3x
+    slower deflate for a 2 % smaller file), with no time stamp."""
+    return gzip.compress(text, 6, mtime=0)
+
+
+class _MemberPool:
+    """Chunks of text made into gzip members (:func:`_gzip_member`) on a
+    pool of :func:`pool_workers` threads named ``name``, never on the
+    calling thread, until :meth:`shutdown`. A chunk is a list of pieces:
+    text, or items ``fmt`` turns into text (the formatter and zlib both
+    release the GIL, so the workers overlap). Each ``fmt`` call is a
+    ``format_span`` and each deflate a ``deflate_span`` in ``spans``, with
+    the chunk's ``parent``; with ``busy`` named, that counter gains the
+    wall from the first worker in to the last one out."""
+
+    def __init__(self, name: str, spans: SpanRecorder, fmt,
+                 format_span: str, deflate_span: str,
+                 busy: Optional[str] = None):
+        self.workers = pool_workers()
+        self._pool = ThreadPoolExecutor(self.workers,
+                                        thread_name_prefix=name)
+        self._spans, self._fmt, self._busy_name = spans, fmt, busy
+        self._fmt_span, self._deflate_span = format_span, deflate_span
+        self._lock = threading.Lock()
+        self._active = self._busy_t0 = 0   # workers in a span; since when
+
+    def submit(self, parent: Optional[str], chunk: list) -> Future:
+        """The future of ``chunk``'s member."""
+        return self._pool.submit(self._member, parent, chunk)
+
+    def shutdown(self, cancel: bool = False) -> None:
+        self._pool.shutdown(cancel_futures=cancel)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, parent: Optional[str]):
+        with self._spans.span(name, parent):
+            if self._busy_name is None:
+                yield
+                return
+            with self._lock:
+                if self._active == 0:
+                    self._busy_t0 = time.perf_counter_ns()
+                self._active += 1
+            try:
+                yield
+            finally:
+                with self._lock:
+                    self._active -= 1
+                    if self._active == 0:
+                        self._spans.add(self._busy_name, 1e-9 * (
+                            time.perf_counter_ns() - self._busy_t0))
+
+    def _member(self, parent: Optional[str], chunk: list) -> bytes:
+        text = []
+        for piece in chunk:
+            if not isinstance(piece, bytes):
+                with self._span(self._fmt_span, parent):
+                    piece = self._fmt(piece)
+            text.append(piece)
+        with self._span(self._deflate_span, parent):
+            return _gzip_member(b"".join(text))
+
+
 class IbdTextWriter:
     """Streaming text IBD writer (HMM.cpp:1114-1144).
 
     The records are cut into chunks of CHUNK_RECORDS records, across the
     blocks' edges (a small block waits for the next ones, or for
-    ``close()``); each chunk is formatted (the native C formatter; without
-    it, the same "%.7g" text made in Python on the calling thread) and
-    deflated at level 6 into one complete gzip member. With
-    ``threaded=True`` a pool of :func:`pool_workers` threads does that
-    (the formatter and zlib both release the GIL, so the workers overlap
-    each other and the device work the main thread waits on) and one
-    writer thread appends the members to the file in chunk order; at most
-    MAX_CHUNKS_IN_FLIGHT chunks wait, so a fast producer blocks in
-    ``write_block``. With ``threaded=False`` the
-    calling thread does it all. ``close()`` writes every queued chunk, so
-    the file ends on a member boundary (a checkpoint's offset). The
-    formatter's and deflate's time goes to ``spans`` as FORMAT and DEFLATE
-    spans, with the span that began the chunk as parent; the members
-    written and the workers' busy wall to its CHUNKS and BUSY counters."""
+    ``close()``), each made a gzip member by a :class:`_MemberPool` (the
+    native C formatter; without it, the same "%.7g" text made in Python
+    on the calling thread), the members appended in chunk order by one
+    writer thread; at most MAX_CHUNKS_IN_FLIGHT chunks wait, so a fast
+    producer blocks in ``write_block``. ``close()`` writes every queued
+    chunk, so the file ends on a member boundary (a checkpoint's offset).
+    In ``spans``: the FORMAT and DEFLATE spans, with the span that began
+    the chunk as parent, and the CHUNKS and BUSY counters."""
 
     def __init__(self, path: str, fam_ids: List[str], iids: List[str],
                  chr_number: int, append: bool = False,
-                 threaded: bool = True,
                  spans: Optional[SpanRecorder] = None):
         self._raw = open(path, "ab" if append else "wb")
         self._append = append
@@ -129,97 +185,42 @@ class IbdTextWriter:
         self._id_blob = None          # lazy native-formatter id table
         self._id_off = None
         self.spans = spans if spans is not None else SpanRecorder()
-        self._lock = threading.Lock()
-        self._active = 0              # workers formatting or deflating
-        self._busy_t0 = 0
-        self._members = 0
         self._err = None
         # the chunk being filled: pieces of blocks (columns, or the Python
         # fallback's text), their records, the span that began it
         self._chunk: list = []
         self._chunk_n = 0
         self._chunk_parent = None
-        # the pool's threads (0: the calling thread does the work)
-        self.workers = pool_workers() if threaded else 0
-        self._q = None
-        if self.workers:
-            self._pool = ThreadPoolExecutor(
-                self.workers, thread_name_prefix="fastsmc-deflate")
-            self._q = queue.Queue(maxsize=MAX_CHUNKS_IN_FLIGHT)
-            self._thr = threading.Thread(target=self._write_loop,
-                                         name="fastsmc-write", daemon=True)
-            self._thr.start()
+        self._pool = _MemberPool("fastsmc-deflate", self.spans, self._format,
+                                 FORMAT, DEFLATE, BUSY)
+        self.workers = self._pool.workers
+        self._q = queue.Queue(maxsize=MAX_CHUNKS_IN_FLIGHT)
+        self._thr = threading.Thread(target=self._write_loop,
+                                     name="fastsmc-write", daemon=True)
+        self._thr.start()
 
-    @property
-    def fmt_s(self) -> float:
-        """Seconds in the formatter, the total of the recorder's FORMAT
-        spans (with a recorder shared across writers, of all of them)."""
-        return self.spans.total_s(FORMAT)
-
-    @property
-    def deflate_s(self) -> float:
-        """Seconds in gzip's deflate, the total of the DEFLATE spans."""
-        return self.spans.total_s(DEFLATE)
-
-    @contextlib.contextmanager
-    def _busy(self):
-        """Inside a FORMAT or DEFLATE span: the BUSY counter gains the wall
-        from the first worker in to the last one out."""
-        with self._lock:
-            if self._active == 0:
-                self._busy_t0 = time.perf_counter_ns()
-            self._active += 1
-        try:
-            yield
-        finally:
-            with self._lock:
-                self._active -= 1
-                if self._active == 0:
-                    self.spans.add(BUSY, (time.perf_counter_ns()
-                                          - self._busy_t0) * 1e-9)
-
-    def _member(self, parent: Optional[str], chunk: list) -> bytes:
-        """One chunk as a complete gzip member at level 6, the zlib
-        default the reference's gzofstream uses (Python's gzip defaults to
-        9: ~3x slower deflate for a 2 % smaller file). Each piece of
-        ``chunk`` is text, or columns for the native formatter."""
-        text = []
-        for piece in chunk:
-            if not isinstance(piece, bytes):
-                with self.spans.span(FORMAT, parent), self._busy():
-                    buf = native.format_ibd(self._id_blob, self._id_off,
-                                            *piece[:8], str(self.chr),
-                                            *piece[8:])
-                if buf is None:
-                    raise RuntimeError(
-                        f"native IBD formatter returned no output for "
-                        f"{len(piece[0])} records")
-                piece = buf
-            text.append(piece)
-        with self.spans.span(DEFLATE, parent), self._busy():
-            return gzip.compress(b"".join(text), 6, mtime=0)
-
-    def _write(self, member: bytes) -> None:
-        self._raw.write(member)
-        self._members += 1
-        self.spans.add(CHUNKS)
+    def _format(self, piece: tuple) -> bytes:
+        """A piece's columns as text, by the native formatter."""
+        buf = native.format_ibd(self._id_blob, self._id_off, *piece[:8],
+                                str(self.chr), *piece[8:])
+        if buf is None:
+            raise RuntimeError(
+                f"native IBD formatter returned no output for "
+                f"{len(piece[0])} records")
+        return buf
 
     def _write_loop(self):
-        """The members in chunk order; after an error, the chunks left
-        are still taken (and dropped) so that close() does not hang."""
-        while True:
-            fut = self._q.get()
+        """The members in chunk order, up to None; after an error, the
+        chunks left are still taken (and dropped) so that close() does
+        not hang."""
+        while (fut := self._q.get()) is not None:
             try:
-                if fut is None:
-                    return
-                member = fut.result()
                 if self._err is None:
-                    self._write(member)
+                    self._raw.write(fut.result())
+                    self.spans.add(CHUNKS)
             except BaseException as e:      # raised on the main thread
                 if self._err is None:
                     self._err = e
-            finally:
-                self._q.task_done()
 
     def _format_py(self, ind1, hap1, ind2, hap2, pos_start, pos_end,
                    length_cm, score, post_est, map_est) -> bytes:
@@ -279,13 +280,10 @@ class IbdTextWriter:
         self.n_written += n
 
     def _submit(self):
-        """Queue the chunk being filled (with no pool, write it)."""
+        """Queue the chunk being filled."""
         chunk, parent = self._chunk, self._chunk_parent
         self._chunk, self._chunk_n = [], 0
-        if self._q is None:
-            self._write(self._member(parent, chunk))
-        else:
-            self._q.put(self._pool.submit(self._member, parent, chunk))
+        self._q.put(self._pool.submit(parent, chunk))
 
     def close(self):
         """Write every queued chunk and the one being filled, stop the
@@ -293,15 +291,12 @@ class IbdTextWriter:
         one."""
         if self._chunk and self._err is None:
             self._submit()
-        if self._q is not None:
-            self._q.join()
-            self._q.put(None)
-            self._thr.join()
-            self._pool.shutdown()
-            self._q = None
-        if self._members == 0 and not self._append and self._err is None:
+        self._q.put(None)
+        self._thr.join()
+        self._pool.shutdown()
+        if not self._append and self._raw.tell() == 0 and self._err is None:
             # no record: still a gzip file, as the reference's empty one
-            self._raw.write(gzip.compress(b"", 6, mtime=0))
+            self._raw.write(_gzip_member(b""))
         self._raw.close()
         if self._err is not None:
             raise self._err
@@ -538,69 +533,49 @@ def _eigen_tab_format(mat: np.ndarray) -> str:
     return "\n".join(lines)
 
 
-def _sums_member(path: str, block: np.ndarray, r0: int, use_native: bool,
-                 spans: SpanRecorder, parent: Optional[str]) -> bytes:
-    """Rows ``r0`` on of ``path``'s matrix (``block``) as one complete gzip
-    member at level 6: formatted by the native library, or by the Python
-    "%.6g" loop without it (the same bytes)."""
-    with spans.span(SUMS_FORMAT, parent):
-        if use_native:
-            text = native.format_sums(block)
-            if text is None:
-                raise RuntimeError(
-                    f"native sums formatter returned no output for rows "
-                    f"{r0}-{r0 + len(block)} of {path}")
-            spans.add(SUMS_NATIVE_CHUNKS)
-        else:
-            text = (_eigen_tab_format(block) + "\n").encode()
-    with spans.span(SUMS_DEFLATE, parent):
-        return gzip.compress(text, 6, mtime=0)
-
-
 def write_sums_files(mats: Dict[str, np.ndarray],
                      spans: Optional[SpanRecorder] = None) -> int:
     """Write each ``{path: matrix}`` as a ``.sumOverPairs.gz`` file: the
     matrix's rows in Eigen tab format (main.cpp:119-167), as a series of
     complete gzip members of SUMS_CHUNK_ROWS rows each, in row order.
 
-    Every file's chunks are formatted and deflated at once on a pool of
-    :func:`pool_workers` threads (with W = 1 the calling thread does it
-    all, in order); each file is written whole once its members are done,
-    so a chunk's failure raises, names the file, and leaves no part of it
-    written. A matrix with no rows gives one member of "\\n", the text of
-    the single-stream writer. The FORMAT and DEFLATE spans go to ``spans``
-    with the caller's open span as parent, the members written and the
-    chunks the native formatter made to its counters. Returns W."""
+    Every file's chunks go at once to one :class:`_MemberPool` (the
+    native formatter, or the Python "%.6g" loop: the same bytes); each
+    file is written whole once its members are done, so a chunk's failure
+    raises, names the file, and leaves no part of it written. No rows
+    give one member of "\\n", the single-stream writer's text. In
+    ``spans``: the FORMAT and DEFLATE spans, with the caller's open span
+    as parent, and the members and native chunks counters. Returns W."""
     spans = spans if spans is not None else SpanRecorder()
     parent = spans.current()
     use_native = native.get_lib() is not None
-    workers = pool_workers()
-    chunks = {path: [(path, m[r0:r0 + SUMS_CHUNK_ROWS], r0, use_native,
-                      spans, parent)
-                     for r0 in range(0, len(m), SUMS_CHUNK_ROWS)]
-              for path, m in mats.items()}
-    if workers == 1:
-        for path, args in chunks.items():
-            _write_sums_file(path, [_sums_member(*a) for a in args], spans)
-        return workers
-    pool = ThreadPoolExecutor(workers, thread_name_prefix="asmc-sums")
+
+    def fmt(piece) -> bytes:
+        path, r0, block = piece
+        if not use_native:
+            return (_eigen_tab_format(block) + "\n").encode()
+        text = native.format_sums(block)
+        if text is None:
+            raise RuntimeError(
+                f"native sums formatter returned no output for rows "
+                f"{r0}-{r0 + len(block)} of {path}")
+        spans.add(SUMS_NATIVE_CHUNKS)
+        return text
+
+    n = SUMS_CHUNK_ROWS
+    pool = _MemberPool("asmc-sums", spans, fmt, SUMS_FORMAT, SUMS_DEFLATE)
     try:
-        futures = {path: [pool.submit(_sums_member, *a) for a in args]
-                   for path, args in chunks.items()}
+        futures = {path: [pool.submit(parent, [(path, r0, m[r0:r0 + n])])
+                          for r0 in range(0, len(m), n)]
+                   for path, m in mats.items()}
         for path, fs in futures.items():
-            _write_sums_file(path, [f.result() for f in fs], spans)
+            members = [f.result() for f in fs] or [_gzip_member(b"\n")]
+            with open(path, "wb") as fh:
+                fh.writelines(members)
+            spans.add(SUMS_MEMBERS, len(members))
     finally:
-        pool.shutdown(cancel_futures=True)
-    return workers
-
-
-def _write_sums_file(path: str, members: List[bytes],
-                     spans: SpanRecorder) -> None:
-    """``path`` as ``members`` in order; with none, the member of "\\n"."""
-    members = members or [gzip.compress(b"\n", 6, mtime=0)]
-    with open(path, "wb") as fh:
-        fh.writelines(members)
-    spans.add(SUMS_MEMBERS, len(members))
+        pool.shutdown(cancel=True)
+    return pool.workers
 
 
 def write_sum_over_pairs(path: str, mat: np.ndarray) -> None:

@@ -450,7 +450,7 @@ class ASMC:
     # ------------------------------------------------------------------
     def write_outputs(self, result: DecodingReturnValues) -> None:
         """main.cpp:119-167: the job's two or four sums files in one call
-        of the writers' pool."""
+        of the sums writer, on one pool of threads."""
         p = self.params
         with self.timer.span("asmc.write"):
             mats = {}

@@ -2,8 +2,9 @@
 memory the wall of a decode pass, or are the operator products?
 
 Counterpart of ``scripts/alpha_wall_probe.py``. Two CUDA kernels
-(``csrc/alpha_wall.cu``) replace its Pallas kernels ``make_fwd`` (:74-108)
-and ``make_bwd`` (:137-155), each with a plain PyTorch version here. Six
+(``csrc/alpha_wall.cu``, in a library of their own, :data:`LIBRARY`)
+replace its Pallas kernels ``make_fwd`` (:74-108) and ``make_bwd``
+(:137-155), each with a plain PyTorch version here. Six
 variants at the probe's shape (KC=128 state rows, KA=72 stored rows, S=8
 sites a block, P=8,192 pairs, T=4,096 sites, G=64 operators):
 
@@ -41,13 +42,26 @@ import os
 import subprocess
 import sys
 import time
+from ctypes import c_int as _I, c_void_p as _P
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..engine import kernels
-from ..engine._build import load_library
+from ..engine._build import Library, load_library
+
+# the probe's own library, apart from the decode kernels'
+LIBRARY = Library("libfastsmc_alpha_wall", ("alpha_wall.cu",),
+                  ("hmm_common.cuh",), {
+    # M, G, em, obs, isp, ops, alpha, T, P, KC, KA, S, store_every,
+    # norm_block, device, stream
+    "fastsmc_alpha_wall_forward": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _P],
+    # M, G, em, obs, alpha, ops, out, carry, carry_site, T, P, KC, KA, S,
+    # read_every, norm_block, device, stream
+    "fastsmc_alpha_wall_backward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _P]})
 
 POST_ROWS = 10          # posterior rows the backward pass sums per pair
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -200,7 +214,7 @@ def forward(M, em, obs, isp, ops, store_every: bool = True,
     kernels._check("isp", isp, torch.float32, (KC,))
     alpha = torch.empty((T if store_every else T // S, KA, P),
                         dtype=torch.bfloat16, device=obs.device)
-    rc = load_library().fastsmc_alpha_wall_forward(
+    rc = load_library(LIBRARY).fastsmc_alpha_wall_forward(
         M.data_ptr(), G, em.data_ptr(), obs.data_ptr(), isp.data_ptr(),
         ops.data_ptr(), alpha.data_ptr(), T, P, KC, KA, S, int(store_every),
         int(norm_block), obs.device.index or 0,
@@ -228,7 +242,7 @@ def backward(M, em, obs, alpha, ops, read_every: bool = True,
     out = torch.empty((T, 1, P), dtype=torch.float32, device=obs.device)
     carry = None if carry_site is None else torch.empty(
         (KC, P), dtype=torch.float32, device=obs.device)
-    rc = load_library().fastsmc_alpha_wall_backward(
+    rc = load_library(LIBRARY).fastsmc_alpha_wall_backward(
         M.data_ptr(), G, em.data_ptr(), obs.data_ptr(), alpha.data_ptr(),
         ops.data_ptr(), out.data_ptr(),
         None if carry is None else carry.data_ptr(),

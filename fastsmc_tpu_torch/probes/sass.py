@@ -4,8 +4,9 @@ and ptxas' registers, spills and shared memory.
     python -m fastsmc_tpu_torch.probes.sass [--rpw 9] [--kernel hmm_forward]
     python -m fastsmc_tpu_torch.probes.sass --rpw 0 --kernel alpha_wall_backward
 
-Builds the kernels' library (``engine/_build.py``; on a machine with the
-CUDA toolkit) unless it exists, dumps the SASS of every entry function
+Builds the library of ``--kernel`` (the decode kernels', or the probe's
+for ``alpha_wall``; on a machine with the CUDA toolkit) unless it exists,
+dumps the SASS of every entry function
 whose name holds ``--kernel`` and the row count ``--rpw`` (KP = 8 x rpw;
 K=69 gives 9; 0 takes every function, as the probe's kernels need) with
 ``cuobjdump -sass``, and prints one JSON line: for each function, its
@@ -134,7 +135,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--kernel", default="hmm_forward")
     args = ap.parse_args(argv)
     from fastsmc_tpu_torch.engine import _build
-    info = _build.build()
+    from fastsmc_tpu_torch.probes import alpha_wall
+    lib = alpha_wall.LIBRARY if "alpha_wall" in args.kernel else _build.DECODE
+    info = _build.build(lib)
     res = sass_report(info.path, info.log, args.kernel,
                       args.rpw or None)
     print(json.dumps(res), flush=True)

@@ -582,7 +582,7 @@ def test_alpha_wall_forward_into_a_misaligned_view(cuda, name):
     want = alpha_wall.run_variant(name, inp, shape)
     buf = torch.zeros(want.numel() + 1, dtype=torch.bfloat16, device="cuda")
     got = buf[1:].view(want.shape)
-    rc = load_library().fastsmc_alpha_wall_forward(
+    rc = load_library(alpha_wall.LIBRARY).fastsmc_alpha_wall_forward(
         inp["M"].data_ptr(), shape.G, inp["em"].data_ptr(),
         inp["obs"].data_ptr(), inp["isp"].data_ptr(), inp["ops"].data_ptr(),
         got.data_ptr(), shape.T, shape.P, shape.KC, shape.KA, shape.S,

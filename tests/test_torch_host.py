@@ -314,12 +314,15 @@ def test_writer_bytes_equal(kind, tmp_path, monkeypatch):
     if kind == "text python":
         monkeypatch.setattr(native, "get_lib", lambda: None)
         monkeypatch.setattr(jax_native, "get_lib", lambda: None)
+    if kind == "text":                  # the port's pool at W = 1
+        monkeypatch.setattr(writers, "_usable_cores", lambda: 2)
     out = {}
     for tag, mod in (("port", writers), ("jax", jax_writers)):
         path = str(tmp_path / f"{tag}.gz")
         if kind.startswith("text"):
-            w = mod.IbdTextWriter(path, *ids, 7,
-                                  threaded=kind == "text threaded")
+            kw = {} if mod is writers else \
+                {"threaded": kind == "text threaded"}
+            w = mod.IbdTextWriter(path, *ids, 7, **kw)
             for seed in range(3):
                 w.write_block(*_block(40, seed))
             w.write_block(*_block(5, 9)[:6], None, _block(5, 9)[7])

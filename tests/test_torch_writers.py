@@ -238,7 +238,7 @@ def test_pool_spans_and_counters(tmp_path, monkeypatch):
         b"".join(b"%d\n" % p for p in range(120))
     assert rec.counter(writers.CHUNKS) == len(members) == 12
     busy = rec.counter(writers.BUSY)
-    work = w.fmt_s + w.deflate_s
+    work = rec.total_s(writers.FORMAT) + rec.total_s(writers.DEFLATE)
     assert work >= 0.4 and 0 < busy <= work and busy < 0.75 * work
 
 
@@ -292,9 +292,9 @@ def test_members_near_one_stream_in_size(tmp_path, monkeypatch):
 
 def test_checkpoint_carries_final_writer_counters(synthetic_panel_root,
                                                   tmp_path, monkeypatch):
-    """_write_progress carries fmt_s/deflate_s from the closed writer to the
-    reopened one, read after close() has drained the queue: a slow
-    formatter leaves blocks queued when the checkpoint starts."""
+    """_write_progress carries the FORMAT/DEFLATE totals from the closed
+    writer to the reopened one, read after close() has drained the queue:
+    a slow formatter leaves blocks queued when the checkpoint starts."""
     root, dq_path, _ = synthetic_panel_root
     params = DecodingParams.fastsmc_defaults(
         root, dq_path, str(tmp_path / "ck"), use_known_seed=True)
@@ -312,8 +312,11 @@ def test_checkpoint_carries_final_writer_counters(synthetic_panel_root,
     for seed in range(4):
         old.write_block(*_block(20, seed))
     f._write_progress(1)
-    assert old.fmt_s >= 0.15
+    spans = old.spans
+    fmt_s, deflate_s = (spans.total_s(writers.FORMAT),
+                        spans.total_s(writers.DEFLATE))
+    assert fmt_s >= 0.15
     assert f._writer is not old
-    assert (f._writer.fmt_s, f._writer.deflate_s) == \
-        (old.fmt_s, old.deflate_s)
+    assert (f._writer.spans.total_s(writers.FORMAT),
+            f._writer.spans.total_s(writers.DEFLATE)) == (fmt_s, deflate_s)
     f._writer.close()
