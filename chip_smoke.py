@@ -24,9 +24,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   4. FastSMC golden leg: FastSMC(...).run() on artifacts/panels/
      example_array must reproduce the record keys (first 9 columns) of
      tests/fixtures/example_array.golden.FastSMC.ibd.gz in order, with
-     float columns within relative 1e-4; then the overflow redo: the same
-     run with every extraction cap started at 8 must redo batches at grown
-     caps and write the same bytes (decompressed);
+     float columns within relative 1e-4, each batch extracted once at the
+     caps its run counts size; then the same run at twice those caps must
+     write the same bytes (decompressed);
   5. FastSMC scale leg: the 16,384-haplotype x 6,400-site folded
      founder-mosaic panel (fastsmc_tpu_torch.probes.biobank make_panel,
      a copy of scripts/biobank_probe.py's), batch
@@ -1499,20 +1499,32 @@ def decompressed_sha256(path: str) -> str:
 
 
 def golden_leg(FastSMC, DecodingParams, kernels) -> dict:
-    """The example panel against the golden; then again with every
-    extraction cap started at 8 (its batches hold at most 32 candidates,
-    so the usual caps never overflow there): the batches are redone at
-    grown caps, and the output must equal the first run's byte for byte
-    (decompressed)."""
-    def run(tag, caps=None):
+    """The example panel against the golden, each batch extracted at the
+    caps its run counts size (logged); then again with every batch
+    extracted at twice those caps: the output must equal the first run's
+    byte for byte (decompressed), and neither run redoes a batch."""
+    seg = kernels.seg
+    sized_caps = seg.sized_caps
+    caps = []
+
+    def run(tag, double=False):
         f = FastSMC(DecodingParams.fastsmc_defaults(
             EXAMPLE, DQ, os.path.join(OUT, tag), use_known_seed=True),
             device=DEVICE)
-        if caps:
-            f._seg_cap = f._kept_cap = f._pps_cap = caps
+
+        def sized(counts):
+            counts = list(counts)
+            caps.append((counts, sized_caps(counts)))
+            return tuple((1 + double) * c for c in caps[-1][1])
+
+        seg.sized_caps = sized
         t0 = time.perf_counter()
-        path, launches = run_leg(kernels, f"FastSMC golden ({tag})",
-                                 DECODE_KERNELS, lambda: f.run(verbose=False))
+        try:
+            path, launches = run_leg(kernels, f"FastSMC golden ({tag})",
+                                     DECODE_KERNELS,
+                                     lambda: f.run(verbose=False))
+        finally:
+            seg.sized_caps = sized_caps
         return f, path, launches, time.perf_counter() - t0
 
     f, path, launches, wall = run("example")
@@ -1520,15 +1532,18 @@ def golden_leg(FastSMC, DecodingParams, kernels) -> dict:
     rel = compare_records(got, read_records(GOLDEN), "golden leg")
     log(f"[golden] {len(got)} records, keys equal in order, float max rel "
         f"{rel:.3g}, wall {wall:.2f} s, launches {launches}")
-    g, tiny, n, wall = run("example_tiny_caps", caps=8)
-    same = decompressed_sha256(tiny) == decompressed_sha256(path)
-    log(f"[golden] caps started at 8: {g.stats['overflow_redos']} overflow "
-        f"redos (default caps: {f.stats['overflow_redos']}), caps grown to "
-        f"raw {g._seg_cap} / kept {g._kept_cap} / ages {g._pps_cap}, output "
+    counted = caps[:]
+    g, double, n, wall = run("example_double_caps", double=True)
+    same = decompressed_sha256(double) == decompressed_sha256(path)
+    log(f"[golden] {len(counted)} batches at counted caps, largest count "
+        f"(raw, kept) {max(c for cs, _ in counted for c in cs)}, caps "
+        f"{sorted(set(cap for _, cap in counted))}; "
+        f"{f.stats['overflow_redos']} / {g.stats['overflow_redos']} overflow "
+        f"redos (counted / twice the counted caps); output at twice the caps "
         f"equal byte for byte: {same}, wall {wall:.2f} s, launches {n}")
-    if not same or g.stats["overflow_redos"] < 1:
-        raise AssertionError("overflow redo leg: the tiny-cap run's output "
-                             "differs or nothing overflowed")
+    if not same or f.stats["overflow_redos"] or g.stats["overflow_redos"]:
+        raise AssertionError("counted caps leg: the output at twice the "
+                             "caps differs, or a batch was redone")
     for k, v in n.items():
         launches[k] = launches.get(k, 0) + v
     return launches, path
@@ -1573,8 +1588,10 @@ def scale_params(DecodingParams, tag: str):
 def check_no_sync(f) -> dict:
     """Queue every flush group of ``f`` after its first under
     torch.cuda.set_sync_debug_mode("error"), so that a call that waits for
-    the card raises; the drains (the wait on each group's event) stay
-    outside. Returns the count of groups checked, filled in as it runs."""
+    the card raises. The mode lets the event waits pass: the batches'
+    counts and, in the previous group's drain (inside the call where the
+    program drains at its first count), that group's events. Returns the
+    count of groups checked, filled in as it runs."""
     checked = {"groups": 0, "calls": 0}
     queue = f._queue_group
 
@@ -2147,22 +2164,20 @@ def pair_set(path: str, n: int = 6) -> set:
 
 
 def mesh_golden_leg(FastSMC, DecodingParams, kernels, mesh, tag: str,
-                    want: str, caps=None) -> dict:
-    """The example panel's FastSMC golden run on ``mesh`` (every cap
-    started at ``caps`` where given): its decompressed output must have
-    sha256 ``want`` (phase 4's)."""
+                    want: str) -> dict:
+    """The example panel's FastSMC golden run on ``mesh``: its
+    decompressed output must have sha256 ``want`` (phase 4's), with no
+    batch redone."""
     f = FastSMC(DecodingParams.fastsmc_defaults(
         EXAMPLE, DQ, os.path.join(OUT, f"example_{tag}"),
         use_known_seed=True), mesh=mesh)
-    if caps:
-        f._seg_cap = f._kept_cap = f._pps_cap = caps
     path, launches = run_leg(kernels, f"FastSMC golden ({tag})",
                              DECODE_KERNELS, lambda: f.run(verbose=False))
     same = decompressed_sha256(path) == want
     log(f"[mesh] golden on {mesh.size} shards ({tag}): output equal to "
         f"phase 4's byte for byte: {same}, {f.stats['overflow_redos']} "
         f"overflow redos, launches {launches}")
-    if not same or (caps and f.stats["overflow_redos"] < 1):
+    if not same or f.stats["overflow_redos"]:
         raise AssertionError(f"mesh golden leg ({tag}) failed")
     return launches
 
@@ -2243,9 +2258,6 @@ def mesh_phase(FastSMC, ASMC, DecodingParams, kernels, scale_data,
         add(mesh_golden_leg(FastSMC, DecodingParams, kernels,
                             make_mesh(devices=["cuda:0"] * S), f"mesh{S}",
                             ref["golden_sha256"]))
-    add(mesh_golden_leg(FastSMC, DecodingParams, kernels,
-                        make_mesh(devices=["cuda:0"] * 4), "mesh4_caps8",
-                        ref["golden_sha256"], caps=8))
     for label, mesh, tag in meshes:
         if tag != "mesh2":
             add(mesh_golden_leg(FastSMC, DecodingParams, kernels, mesh, tag,

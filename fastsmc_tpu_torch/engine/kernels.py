@@ -456,9 +456,10 @@ class GpuDecoder:
     the pipelines use, in the context's decoding mode and on one of
     :data:`PROFILES`. Given ``spans`` (the calling pipeline's recorder),
     each decode records its prologue, forward and backward (with the block
-    reduction) and each fused extraction its own span there, named under
-    the caller's ``span_prefix``: ``<prefix>.decode.prologue``,
-    ``.decode.forward``, ``.decode.backward`` and ``<prefix>.extract``."""
+    reduction) and each extraction phase (the count, the sized compaction)
+    its own span there, named under the caller's ``span_prefix``:
+    ``<prefix>.decode.prologue``, ``.decode.forward``, ``.decode.backward``
+    and ``<prefix>.extract``."""
 
     supports_fused_extract = True
 
@@ -551,21 +552,30 @@ class GpuDecoder:
         return contextlib.nullcontext() if self.spans is None \
             else self.spans.span(f"{self.span_prefix}.{name}")
 
-    def _decode_body(self, hap_a, hap_b, t0: int, T: int, outs: BwdOutputs,
-                     state_threshold: int) -> dict:
+    def forward_pass(self, hap_a, hap_b, t0: int, T: int) -> "Forward":
+        """The prologue and the forward kernel over [t0, t0+T), queued."""
         t = self.tables
         with self._span("decode.prologue"):
-            obs, em, ops_f, ops_b, mask = self.prologue(hap_a, hap_b, t0, T)
+            obs, em, ops_f, ops_b, mask = self.prologue(hap_a, hap_b, int(t0),
+                                                        int(T))
             seq_f = seq_b = None
             if self.sequence:
-                seq_f, seq_b = self.seq_prologue(t0, T)
+                seq_f, seq_b = self.seq_prologue(int(t0), int(T))
         with self._span("decode.forward"):
             alpha = forward(t.Mf, em, obs, t.isp, ops_f, mask, seq_f,
                             self.profile, t.split)
+        return Forward(obs, em, ops_b, mask, seq_b, alpha)
+
+    def backward_pass(self, fwd: "Forward", outs: BwdOutputs,
+                      state_threshold: int) -> dict:
+        """The backward+combine kernel after :meth:`forward_pass`, queued;
+        alpha is freed once the caller drops ``fwd``."""
+        t = self.tables
         with self._span("decode.backward"):
-            return backward_combine(t.Mb, em, obs, alpha, ops_b, mask,
-                                    self.K, state_threshold, outs,
-                                    t.exp_times, seq_b, self.profile)
+            return backward_combine(t.Mb, fwd.em, fwd.obs, fwd.alpha,
+                                    fwd.ops_b, fwd.mask, self.K,
+                                    int(state_threshold), outs, t.exp_times,
+                                    fwd.seq_b, self.profile)
 
     def decode_pairs(self, hap_a, hap_b, t0: int = 0,
                      t_len: Optional[int] = None,
@@ -576,8 +586,8 @@ class GpuDecoder:
         posterior_sums [T, K], per_pair_mean / per_pair_map /
         threshold_sums [T, P], major_minor_sums [T, 3, K]."""
         T = self.L - t0 if t_len is None else int(t_len)
-        r = self._decode_body(hap_a, hap_b, int(t0), T, outputs,
-                              int(state_threshold))
+        r = self.backward_pass(self.forward_pass(hap_a, hap_b, t0, T),
+                               outputs, state_threshold)
         if "posterior" in r:
             r["posterior"] = r["posterior"][:, :self.K]
         for name in ("posterior_sums", "major_minor_sums"):
@@ -585,35 +595,84 @@ class GpuDecoder:
                 r[name] = r[name][..., :self.K]
         return r
 
-    def decode_extract_packed(self, hap_a, hap_b, t0: int, t_len: int,
-                              state_threshold: int, s0: int, s1: int,
-                              prob_threshold: float, cap: int, pps_cap: int,
-                              age_threshold: int, need_ages: bool = True,
-                              w0=None, w1=None, kcap: int = 0):
-        """Decode + kept-run extraction (+ per-run ages), the counterpart of
-        ``PallasDecoder.decode_extract_packed`` (kernels.py:731-809): the
-        kernels, the window mask and :func:`segments.extract_packed` at the
-        given caps, queued on the current stream. Returns device tensors
-        ``(packed [3*kcap+2] int32, ages [2, min(pps_cap, kcap)] f32
-        (posterior mean, MAP) or None, threshold_sums [T, P])``. With the
-        pair and window arrays as tensors on the device (:func:`stage`)
-        nothing here waits for the device; the [T, K, P] posterior is a
-        temporary of this call."""
+    def count_pass(self, fwd: "Forward", state_threshold: int, s0: int,
+                   s1: int, prob_threshold: float, age_threshold: int,
+                   need_ages: bool = True, w0=None, w1=None) -> "Counted":
+        """The backward after ``fwd`` (the posterior only with ages), the
+        window mask and the count phase (``segments.count_runs``), queued;
+        the counts are copied to pinned host memory behind an event. Read
+        them with :meth:`read_counts`, then extract with
+        :meth:`extract_counted`, which frees the posterior."""
         outs = BwdOutputs(posterior=need_ages, threshold_sums=True)
-        r = self._decode_body(hap_a, hap_b, int(t0), int(t_len), outs,
-                              int(state_threshold))
+        r = self.backward_pass(fwd, outs, state_threshold)
         th = r["threshold_sums"]
         with self._span("extract"):
-            thm = th if w0 is None else seg.mask_window(th, w0, w1)
-            post = r["posterior"][:, :age_threshold] if need_ages else None
-            packed, pps = seg.extract_packed(thm, s0, s1, prob_threshold,
-                                             cap, post, pps_cap, kcap)
-            if not need_ages:
-                return packed, None, th
+            if w0 is not None:
+                th = seg.mask_window(th, w0, w1)
+            rc = seg.count_runs(th, s0, s1, prob_threshold)
+            counts = to_host(rc.counts)
+            event = None
+            if rc.counts.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+        post = r["posterior"][:, :age_threshold] if need_ages else None
+        return Counted(th, int(s1), rc, post, counts, event)
+
+    @staticmethod
+    def read_counts(c: "Counted") -> list:
+        """``[(n_raw, n_kept)]`` of a counted batch, once its event has
+        fired (the host waits for it here)."""
+        if c.event is not None:
+            c.event.synchronize()
+        return [tuple(c.counts.tolist())]
+
+    def extract_counted(self, c: "Counted", cap: int, kcap: int,
+                        age_threshold: int):
+        """The sized compaction (``segments.compact_runs``) of a counted
+        batch at caps no smaller than its counts (``segments.sized_caps``),
+        and the per-run ages, queued: ``(packed [3*kcap+2] int32, ages
+        [2, kcap] f32 (posterior mean, MAP) or None)``."""
+        with self._span("extract"):
+            packed, pps = seg.compact_runs(c.th, c.s1, c.runs, cap, kcap,
+                                           c.posterior)
+            if pps is None:
+                return packed, None
             t = self.tables
-            ages = seg.run_ages(pps, t.exp_times[:self.K], t.isp[:self.K],
-                                age_threshold)
-        return packed, ages, th
+            return packed, seg.run_ages(pps, t.exp_times[:self.K],
+                                        t.isp[:self.K], age_threshold)
+
+
+class Forward(NamedTuple):
+    """A batch after :meth:`GpuDecoder.forward_pass`: the backward's inputs
+    and alpha."""
+    obs: torch.Tensor
+    em: torch.Tensor
+    ops_b: torch.Tensor
+    mask: torch.Tensor
+    seq_b: Optional[Seq]
+    alpha: torch.Tensor
+
+
+class Counted(NamedTuple):
+    """A batch between its count and its sized extraction
+    (:meth:`GpuDecoder.count_pass`)."""
+    th: torch.Tensor                    # threshold sums [T, P], masked
+    s1: int
+    runs: seg.RunCount                  # levels, flags, counts on the device
+    posterior: Optional[torch.Tensor]   # [T, age_threshold, P] or None
+    counts: torch.Tensor                # int32 [2] on the host
+    event: Optional[torch.cuda.Event]   # after the counts' copy (CUDA)
+
+
+def to_host(x: torch.Tensor) -> torch.Tensor:
+    """``x`` on the host: for a CUDA tensor a pinned buffer with the copy
+    queued (read it after an event recorded later has fired); a CPU tensor
+    as it is."""
+    if x.device.type != "cuda":
+        return x
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x, non_blocking=True)
+    return h
 
 
 def stage(x, device: torch.device, dtype=np.int32):

@@ -5,30 +5,37 @@ Counterpart of the device half of ``fastsmc_tpu/engine/segments.py``
 the 4-level threshold classification (HMM.cpp:1226-1308), run bounds,
 kept-run selection, run scores, per-run posterior-state sums and ages.
 
-The pipeline's path is :func:`extract_packed`: every shape depends only on
-the caps, the compactions are a cumsum and a sorted search, and nothing
-waits for the device, so a whole flush group is queued before its packed
-rows are copied to the host. A count over its cap asks the caller to redo
-the batch at grown caps (the JAX package's overflow redo). Run scores and
-per-run state sums are differences of float64 prefix sums over sites, so
-a run's value depends on its own sites alone: never on the cap, on where
-the run falls in its row, or on the other runs, and a redo gives the same
-bits. :func:`boundaries_runs` and :func:`extract_kept_runs` return exactly
-the kept runs with no cap; they are the plain version the tests hold the
-capped extraction to, and wait for the device (``torch.nonzero``). The two
-host helpers, ``state_threshold`` and ``probability_threshold``, the
-host unpack of a packed row and the merge of a mesh's per-shard rows are
-copies of that module's.
+The pipeline's path has two phases. :func:`count_runs` classifies the
+sites and flags the level boundaries, and counts them and the kept ones
+into one small int32 tensor, which the caller copies to the host. Then
+:func:`compact_runs` packs the kept runs at caps sized from those counts
+(:func:`sized_caps`), reusing the count's levels and flags. Every shape
+of a phase depends only on its input's shape or on the caps, the
+compactions are a cumsum and a sorted search, and nothing waits for the
+device. The JAX package instead guesses its caps and redoes a batch that
+overflows them; its bytes are the same. Run scores and per-run state sums
+are differences of float64 prefix sums over sites, so a run's value
+depends on its own sites alone: never on the cap, on where the run falls
+in its row, or on the other runs. :func:`boundaries_runs` and
+:func:`extract_kept_runs` return exactly the kept runs with no cap; they
+are the plain version the tests hold the two phases to, and wait for the
+device (``torch.nonzero``). The two host helpers, ``state_threshold`` and
+``probability_threshold``, the host unpack of a packed row and the merge
+of a mesh's per-shard rows are copies of that module's.
 """
 
 from __future__ import annotations
+
+from typing import Iterable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 _NONE = 4          # level of a site below every threshold
-# pairs whose [T+1, A, pairs] float64 state prefix sums :func:`run_pps`
-# builds at a time: about this many elements
+# pairs whose [T+1, A, pairs] float64 prefix sums :func:`run_pps` builds
+# at a time: about this many elements (512 MiB). The scan over sites is
+# sequential in each column, so a block of fewer columns takes about as
+# long: the fewer the blocks the faster
 _PREFIX_ELEMS = 1 << 26
 
 
@@ -112,13 +119,10 @@ def boundaries_runs(th: torch.Tensor, s0: int, s1: int,
 
 def run_scores(th: torch.Tensor, pair, a, b) -> torch.Tensor:
     """f32 sum of th over [a_i, b_i] in column pair_i, per run
-    (segments.py:197-223): the difference of two float64 prefix sums over
-    sites, rounded once. Runs with ``b < a`` (fill) score 0."""
-    T, P = th.shape
-    cs = torch.zeros((T + 1, P), dtype=torch.float64, device=th.device)
-    torch.cumsum(th, 0, dtype=torch.float64, out=cs[1:])
-    pr = pair.clamp(0, P - 1)
-    return (cs[b + 1, pr] - cs[a, pr]).float()
+    (segments.py:197-223): :func:`run_pps` of th as one state, so the
+    difference of two float64 prefix sums over sites, rounded once. Runs
+    with ``b < a`` (fill) score 0."""
+    return run_pps(th[:, None, :], pair, a, b)[:, 0]
 
 
 def extract_kept_runs(th: torch.Tensor, s0: int, s1: int,
@@ -136,18 +140,20 @@ def run_pps(post: torch.Tensor, pair, a, b) -> torch.Tensor:
     """Per-run, per-state posterior sums [n, A] over each run's [a, b] in
     column ``pair`` of ``post`` [T, A, P] (segments.py:277-317): float64
     prefix sums over sites, differenced and rounded once to f32, built for
-    a block of pairs at a time; fill runs (``b < a``) give 0."""
+    a block of pairs at a time, in place (no float64 copy of the block
+    besides them); fill runs (``b < a``) give 0."""
     T, A, P = post.shape
     out = post.new_zeros((pair.shape[0], A))
-    block = max(1, min(P, _PREFIX_ELEMS // ((T + 1) * A)))
+    block = max(1, min(P, _PREFIX_ELEMS // (T * A)))
     for p0 in range(0, P, block):
         w = min(block, P - p0)
         cs = post.new_empty((T + 1, A, w), dtype=torch.float64)
         cs[0] = 0.0
-        torch.cumsum(post[:, :, p0:p0 + w], 0, dtype=torch.float64,
-                     out=cs[1:])
+        cs[1:] = post[:, :, p0:p0 + w]
+        cs[1:].cumsum_(0)
         local = (pair - p0).clamp(0, w - 1)
         sums = (cs[b + 1, :, local] - cs[a, :, local]).float()
+        del cs          # or the next block's is allocated beside it
         inside = (pair >= p0) & (pair < p0 + w)
         out = torch.where(inside[:, None], sums, out)
     return out
@@ -168,8 +174,37 @@ def run_ages(pps: torch.Tensor, expected_times: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# capped extraction: shapes set by the caps, no host sync
+# the count and the sized compaction: shapes set by the input or the caps,
+# no host sync
 # ---------------------------------------------------------------------------
+
+class RunCount(NamedTuple):
+    """The count phase's output (:func:`count_runs`), kept on the device
+    for the compaction."""
+    lvl_t: torch.Tensor     # int8 [P, T], the sites' levels (:func:`levels`)
+    flags: torch.Tensor     # bool [P*T], the level boundaries (:func:`_changes`)
+    counts: torch.Tensor    # int32 [2]: n_raw boundaries, n_kept of them
+
+
+def count_runs(th: torch.Tensor, s0: int, s1: int,
+               prob_threshold: float) -> RunCount:
+    """Levels and boundaries of ``th`` [T, P] inside [s0, s1), and the
+    counts: n_raw, the boundaries, and n_kept, those whose new level is
+    below 4 (each starts a kept run)."""
+    lvl_t = levels(th, s0, s1, prob_threshold)
+    flags = _changes(lvl_t)
+    kept = flags & (lvl_t.reshape(-1) != _NONE)
+    return RunCount(lvl_t, flags, torch.stack([
+        flags.sum(dtype=torch.int32), kept.sum(dtype=torch.int32)]))
+
+
+def sized_caps(counts: Iterable[Tuple[int, int]]) -> Tuple[int, int]:
+    """``(cap, kcap)`` for rows of the given ``(n_raw, n_kept)`` counts (one
+    pair per shard): the largest of each, rounded up to a multiple of 256
+    (at least 256) so that like batches reuse the allocator's blocks."""
+    n_raw, n_kept = (max(c) for c in zip(*counts))
+    return tuple(256 * max(1, -(-n // 256)) for n in (n_raw, n_kept))
+
 
 def compact(flags: torch.Tensor, size: int):
     """Ascending indices of the set entries of ``flags`` [N], the first
@@ -181,43 +216,27 @@ def compact(flags: torch.Tensor, size: int):
     return torch.searchsorted(cum, want, out_int32=True), cum[-1]
 
 
-def _boundaries_runs_capped(th: torch.Tensor, s0: int, s1: int,
-                           prob_threshold: float, cap: int):
-    """The first ``cap`` level boundaries (segments.py:143-194): ``(idx,
-    lv, n_raw, pair, a, b)``, int32 [cap] each but ``lv`` (int8) and the
-    0-d count ``n_raw``. Slots past the count have idx == T*P, pair == P
-    and lv == 4; with n_raw > cap the last run's end is wrong and the
-    caller redoes the batch at a grown cap."""
-    T, P = th.shape
-    lvl_t = levels(th, s0, s1, prob_threshold)
-    idx, n_raw = compact(_changes(lvl_t), cap)
-    lv = torch.where(idx < T * P,
-                     lvl_t.reshape(-1)[idx.clamp(max=T * P - 1)], _NONE)
-    return (idx, lv, n_raw, *_run_bounds(idx, T, P, s1))
-
-
-def extract_packed(th: torch.Tensor, s0: int, s1: int, prob_threshold: float,
-                   cap: int, posterior=None, pps_cap: int = 0, kcap: int = 0):
-    """Kept runs of ``th`` [T, P] inside [s0, s1) packed into one int32
-    row (segments.py:339-430): ``[start (pair*T + a), b (inclusive),
-    score bits, n_kept, n_raw]``, length 3*kcap + 2; ``cap`` bounds the
-    raw boundary pass, ``kcap`` (default ``cap``, at most ``cap``) the kept
+def compact_runs(th: torch.Tensor, s1: int, rc: RunCount, cap: int,
+                 kcap: int, posterior=None):
+    """Kept runs of ``th`` [T, P] (counted by :func:`count_runs` inside
+    [s0, s1)) packed into one int32 row (segments.py:339-430): ``[start
+    (pair*T + a), b (inclusive), score bits, n_kept, n_raw]``, length
+    3*kcap + 2; ``cap`` bounds the raw boundary pass and ``kcap`` the kept
     runs. With ``posterior`` ([T, A, P]) also the per-run state sums
-    [min(pps_cap, kcap), A] of the first kept runs (rows past n_kept are
-    zero). Slots past n_kept hold start == T*P, b == -1, score 0. n_raw >
-    cap or n_kept > kcap (or over the pps rows) means truncation: unpack
-    with :func:`unpack_extract_rows` and redo at grown caps."""
+    [kcap, A]. Slots past n_kept hold start == T*P, b == -1, score 0 and
+    state sums 0. At caps from :func:`sized_caps` every run fits; below
+    its count a pass keeps its first runs (the last raw run's end is then
+    wrong) and the row still holds the true counts."""
     T, P = th.shape
     if T * P >= 1 << 28:
         raise ValueError(f"T*P = {T * P} >= 2**28 overflows the packed "
                          "boundary encoding")
-    kcap = kcap or cap
-    if cap <= 0 or not 0 < kcap <= cap:
+    if not 0 < kcap <= cap:
         raise ValueError(f"cap={cap}/kcap={kcap}: need 0 < kcap <= cap")
-    if posterior is not None and pps_cap <= 0:
-        raise ValueError(f"pps_cap={pps_cap} must be positive")
-    idx, lv, n_raw, pair, a, b = _boundaries_runs_capped(
-        th, s0, s1, prob_threshold, cap)
+    idx, n_raw = compact(rc.flags, cap)
+    lv = torch.where(idx < T * P,
+                     rc.lvl_t.reshape(-1)[idx.clamp(max=T * P - 1)], _NONE)
+    pair, a, b = _run_bounds(idx, T, P, s1)
     # slots past n_raw have lv == 4, so the kept flags need no count guard
     kidx, n_kept = compact(lv != _NONE, kcap)
     valid = kidx < cap
@@ -231,21 +250,13 @@ def extract_packed(th: torch.Tensor, s0: int, s1: int, prob_threshold: float,
                         n_kept.reshape(1), n_raw.reshape(1)])
     if posterior is None:
         return packed, None
-    n = min(pps_cap, kcap)
-    return packed, run_pps(posterior, kpair[:n], ka[:n], kb[:n])
-
-
-def stack_rows(rows) -> torch.Tensor:
-    """A flush group's packed rows or age rows as one tensor, for one
-    device-to-host copy (segments.py:459-467)."""
-    return torch.stack(list(rows))
+    return packed, run_pps(posterior, kpair, ka, kb)
 
 
 def unpack_extract_rows(packed_row: np.ndarray, kcap: int):
-    """Host unpack of one :func:`extract_packed` row (segments.py:470-482):
+    """Host unpack of one :func:`compact_runs` row (segments.py:470-482):
     ``(start [kcap] int32 (pair*T + a), b [kcap] int32, score [kcap] f32,
-    n_kept, n_raw)``. ``n_kept > kcap``, or ``n_raw`` over the raw cap the
-    row was extracted with, means truncation: redo at grown caps."""
+    n_kept, n_raw)``."""
     start = packed_row[:kcap]
     b = packed_row[kcap:2 * kcap]
     score = packed_row[2 * kcap:3 * kcap].view(np.float32)
@@ -255,13 +266,11 @@ def unpack_extract_rows(packed_row: np.ndarray, kcap: int):
 
 def merge_packed_shards(mat: np.ndarray, T: int, P_local: int):
     """Host merge of a mesh's per-shard packed rows ``mat`` [S, 3*kcap+2]
-    (``ShardedDecoder.decode_extract_packed``; segments.py:485-511). Shard
-    s holds its local pairs of the s-th contiguous slice of the pair axis:
+    (``ShardedDecoder.extract_counted``; segments.py:485-511). Shard s
+    holds its local pairs of the s-th contiguous slice of the pair axis:
     its run starts offset by ``s * P_local * T`` and concatenated in shard
     order are the meshless extraction's pair-major stream. Returns
-    ``(start int64, b, score, ns_kept, ns_raw)`` with per-shard counts: a
-    shard's ``ns_kept[s] > kcap`` (or ``ns_raw[s]`` over the raw cap)
-    means its row was truncated and the batch is redone at grown caps."""
+    ``(start int64, b, score, ns_kept, ns_raw)`` with per-shard counts."""
     kcap = (mat.shape[1] - 2) // 3
     parts, ns_kept, ns_raw = [], [], []
     for s in range(mat.shape[0]):

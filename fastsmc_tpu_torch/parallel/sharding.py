@@ -28,6 +28,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..engine import segments as seg
 from ..engine.kernels import (BwdOutputs, GpuDecoder, resolve_device,
                               stage)
 from ..engine.oracle import DecodeContext
@@ -92,7 +93,8 @@ def on_device(dev: torch.device):
 
 class ShardedDecoder:
     """Pair-parallel decoding over a mesh with the :class:`GpuDecoder`
-    interface the pipelines use (``decode_pairs``, ``decode_extract_packed``).
+    interface the pipelines use (``decode_pairs``, ``forward_pass``,
+    ``count_pass``, ``read_counts``, ``extract_counted``).
     The global pair batch must be a multiple of the mesh size; shard s
     takes the s-th contiguous slice of it. ``spans`` and
     ``span_prefix`` go to every shard's decoder."""
@@ -207,48 +209,62 @@ class ShardedDecoder:
                     int(state_threshold)))
         return self.combine(parts)
 
-    def decode_extract_packed(self, hap_a, hap_b, t0: int, t_len: int,
-                              state_threshold: int, s0: int, s1: int,
-                              prob_threshold: float, cap: int, pps_cap: int,
-                              age_threshold: int, need_ages: bool = True,
-                              w0=None, w1=None, kcap: int = 0):
-        """Decode + capped extraction per shard (sharding.py:283-332):
-        ``(packed [S, 3*kcap+2] int32, ages [S, 2, min(pps_cap, kcap)] or
-        None, threshold_sums [T, P_global])`` on the mesh's first device.
-        Every shard extracts its own pairs with the full ``cap``/``kcap``
-        (run counts are not balanced across shards), so the overflow
-        checks apply per shard (``segments.merge_packed_shards``). With the
-        pair and window arrays staged (:meth:`stage`) nothing here waits
-        for a device."""
+    def forward_pass(self, hap_a, hap_b, t0: int, T: int) -> list:
+        """Each shard's :meth:`GpuDecoder.forward_pass` over its slice of
+        the pairs, queued; one ``Forward`` a shard."""
         P_local = self._local_size(hap_a)
-        T = int(t_len)
-        if T * P_local >= 1 << 28:
-            raise ValueError(f"T*P_local = {T * P_local} >= 2**28 overflows "
-                             "the packed boundary encoding")
-        kcap = kcap or cap
-        if cap <= 0 or pps_cap <= 0 or not 0 < kcap <= cap:
-            raise ValueError(f"cap={cap}/kcap={kcap}/pps_cap={pps_cap} must "
-                             "be positive with kcap <= cap")
-        packs, ages, ths = [], [], []
+        if int(T) * P_local >= 1 << 28:
+            raise ValueError(f"T*P_local = {int(T) * P_local} >= 2**28 "
+                             "overflows the packed boundary encoding")
+        out = []
         for s, dev in enumerate(self.devices):
             with on_device(dev):
-                packed, a, th = self.decoders[dev].decode_extract_packed(
+                out.append(self.decoders[dev].forward_pass(
                     self._local(hap_a, s, P_local),
-                    self._local(hap_b, s, P_local), t0, T, state_threshold,
-                    s0, s1, prob_threshold, cap, pps_cap, age_threshold,
-                    need_ages, self._local(w0, s, P_local),
-                    self._local(w1, s, P_local), kcap)
+                    self._local(hap_b, s, P_local), t0, T))
+        return out
+
+    def count_pass(self, fwds: list, state_threshold: int, s0: int, s1: int,
+                   prob_threshold: float, age_threshold: int,
+                   need_ages: bool = True, w0=None, w1=None) -> list:
+        """Each shard's :meth:`GpuDecoder.count_pass` on its own pairs and
+        windows (run counts are not balanced across shards); one
+        ``Counted`` a shard."""
+        P_local = fwds[0].obs.shape[-1]
+        out = []
+        for s, dev in enumerate(self.devices):
+            with on_device(dev):
+                out.append(self.decoders[dev].count_pass(
+                    fwds[s], state_threshold, s0, s1, prob_threshold,
+                    age_threshold, need_ages, self._local(w0, s, P_local),
+                    self._local(w1, s, P_local)))
+        return out
+
+    @staticmethod
+    def read_counts(cs: list) -> list:
+        """``[(n_raw, n_kept)]``, a shard each: one wait for every
+        shard's count."""
+        return [n for c in cs for n in GpuDecoder.read_counts(c)]
+
+    def extract_counted(self, cs: list, cap: int, kcap: int,
+                        age_threshold: int):
+        """Every shard's sized compaction at the same caps, the largest
+        shard's counts (``segments.sized_caps``): ``(packed [S, 3*kcap+2]
+        int32, ages [S, 2, kcap] or None)`` on the mesh's first device,
+        merged at the host (``segments.merge_packed_shards``)."""
+        packs, ages = [], []
+        for s, dev in enumerate(self.devices):
+            with on_device(dev):
+                packed, a = self.decoders[dev].extract_counted(
+                    cs[s], cap, kcap, age_threshold)
             packs.append(packed)
             ages.append(a)
-            ths.append(th)
+        return (self._gather(packs),
+                None if ages[0] is None else self._gather(ages))
+
+    def _gather(self, xs: list) -> torch.Tensor:
         dev = self.devices[0]
-
-        def gather(xs):
-            return [x.to(dev, non_blocking=True) for x in xs]
-
-        return (torch.stack(gather(packs)),
-                torch.stack(gather(ages)) if need_ages else None,
-                torch.cat(gather(ths), dim=1))
+        return torch.stack([x.to(dev, non_blocking=True) for x in xs])
 
     # ------------------------------------------------------------------
     def posterior_sums(self, hap_a, hap_b, t0: int, t_len: int):

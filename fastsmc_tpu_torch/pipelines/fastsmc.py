@@ -11,23 +11,32 @@ their members' padded union). Without hashing every pair of the job's slice
 of the flat pair enumeration is a candidate, decoded over the whole
 chromosome in batches of ``batch_size``.
 
-A flush group of batches is queued on the card without waiting for it:
-per batch the two CUDA kernels, the window mask and run extraction against
-capped buffers; then one stacked copy of the packed rows (and age rows) to
-pinned host memory and one CUDA event a device. The host then drains the
-previous group (waits on its events, unpacks, writes) while this one runs.
-A batch whose runs overflow a cap is redone at grown caps, with the same
-bytes a large enough cap would have given. With a mesh
-(``parallel.sharding``) each batch is split over its shards, which extract
-their own runs; the per-shard rows are merged at the drain, and any shard
-over a cap redoes the batch. Record order equals the JAX package's.
+A flush group of batches is queued on the card batch by batch. Per batch
+the two CUDA kernels, the window mask and the count of its runs
+(``segments.count_runs``), whose two numbers are copied to pinned host
+memory behind an event; then the run extraction at caps sized from those
+counts, so no batch overflows and none is decoded twice (the JAX package
+redoes a batch that overflows its caps, with the same bytes). The card
+never waits for the host's read of a count: batch i+1's forward is
+queued before the host waits for batch i's count, and batch i's
+extraction, which frees its posterior, before batch i+1's backward, so at
+most one alpha and one posterior are alive. At the group's first wait on
+a count the host drains the previous group (waits on its events, unpacks,
+writes) while the card decodes. The group's packed rows (and age rows)
+go to pinned host memory in one copy, behind one CUDA event a device.
+With a mesh (``parallel.sharding``) each batch is split over its shards,
+which count and extract their own runs at the caps of the largest shard's
+counts; the per-shard rows are merged at the drain. Record order equals
+the JAX package's.
 
 Every stage records a span in ``FastSMC.timer`` (``utils.timer``), all
 under ``fastsmc.run``: ``fastsmc.intake`` (candidate or pair bookkeeping),
-``fastsmc.dispatch`` (a group queued; in it each batch's
-``fastsmc.decode.prologue``, ``.forward``, ``.backward`` and
-``fastsmc.extract``), ``fastsmc.drain`` (with ``fastsmc.drain.wait`` on the
-card and ``fastsmc.drain.redo``), ``fastsmc.emit`` (a batch's records to
+``fastsmc.dispatch`` (a group queued, in pieces, two a batch and one
+more; in them each batch's ``fastsmc.decode.prologue``,
+``.forward``, ``.backward``, its two ``fastsmc.extract`` phases and
+``fastsmc.dispatch.count_wait``, the host's wait for a count),
+``fastsmc.drain`` (with ``fastsmc.drain.wait`` on the card),
+``fastsmc.emit`` (a batch's records to
 the writer, whose thread records ``fastsmc.writer.format`` and
 ``.deflate`` with that emit as parent), ``fastsmc.checkpoint`` and the
 final ``fastsmc.writer.close``; the constructor records ``fastsmc.init``,
@@ -47,7 +56,7 @@ import torch
 from ..config import DecodingParams
 from ..engine import segments as seg
 from ..engine.hmm import bucket_len
-from ..engine.kernels import GpuDecoder, resolve_device, stage
+from ..engine.kernels import GpuDecoder, resolve_device, stage, to_host
 from ..engine.oracle import DecodeContext
 from ..hashing.germline import SCAN, HashingScan
 from ..io import writers
@@ -202,14 +211,6 @@ class FastSMC:
         self._batch_idx = 0
         self._resume_skip = 0
         self._drains_since_ckpt = 0
-        # extraction caps (fastsmc.py:205-235), grown sticky on overflow:
-        # the raw boundary pass, the kept runs, the per-run age rows. With
-        # ages an overflow re-decodes the batch, so the raw cap starts at
-        # the batch width
-        self._seg_cap = bucket_len(max(4096, bs), 256) if self.need_ages \
-            else 4096
-        self._kept_cap = 4096
-        self._pps_cap = 8192
         self.flush_group = flush_group or DEFAULT_FLUSH_GROUP
         self._group: List[dict] = []
         self._gpending: Optional[dict] = None
@@ -228,7 +229,8 @@ class FastSMC:
         self.bucket_sites = bucket_sites
         self._buckets: dict = {}        # region -> list of column tuples
         self._bucket_n: dict = {}       # region -> buffered count
-        # window waste, redos and the bytes copied from the card
+        # window waste, the bytes copied from the card, and redos (none:
+        # the caps are sized from each batch's counts)
         self.stats = {"decoded_site_pairs": 0, "union_site_pairs": 0,
                       "cand_site_pairs": 0, "flushes": 0,
                       "overflow_redos": 0, "d2h_bytes": 0}
@@ -472,16 +474,14 @@ class FastSMC:
     # grouped dispatch and drain (fastsmc.py:569-803)
     # ------------------------------------------------------------------
     def _dispatch_group(self):
-        """Queue the group on the card, then drain the previous one while
-        it runs."""
+        """Queue the group on the card, draining the previous one at the
+        group's first wait on a count."""
         if not self._group:
             return
         entries, self._group = self._group, []
         self.stats["decoded_site_pairs"] += \
             sum(e["t_len"] * e["P"] for e in entries)
-        pending = self._queue_group(entries)
-        self._drain_group()
-        self._gpending = pending
+        self._gpending = self._queue_group(entries)
 
     def _stage(self, x):
         """Host array ``x`` on the decoder's device(s), with its pinned
@@ -491,27 +491,42 @@ class FastSMC:
         return stage(x, self._devices[0])
 
     def _queue_group(self, entries: List[dict]) -> dict:
-        """Every entry's decode and capped extraction, the stacked packed
-        (and age) rows copied to pinned host buffers, and one event a device
-        after them; nothing here waits for a card. The pair and window
-        arrays go up through pinned tensors, which the entries keep until
-        the drain."""
-        with self.timer.span("fastsmc.dispatch"):
-            kcap = min(self._kept_cap, self._seg_cap)
-            packs, ages = [], []
-            for e in entries:
+        """Every entry's decode, count and sized extraction, in the order
+        the module docstring gives, with the previous group's drain before
+        the first wait on a count; then the group's packed (and age) rows
+        copied to pinned host buffers, and one event a device after them.
+        The host waits only for the counts' events and, in the drain, for
+        the previous group's. The pair and window arrays go up through
+        pinned tensors, which the entries keep until the drain."""
+        dec = self.decoder
+        # counted: the batch not extracted yet, popped so that nothing
+        # holds its posterior once its extraction is queued
+        rows, counted = [], []
+        for e in entries:
+            with self.timer.span("fastsmc.dispatch"):
                 e["dev"] = [(None, None) if e[k] is None
                             else self._stage(e[k])
                             for k in ("hap1", "hap2", "w0", "w1")]
-                packed, ages_rows, th = self._decode(e, self._seg_cap, kcap)
-                # without ages a redo re-extracts from the threshold sums
-                e["th"] = None if self.need_ages else th
-                packs.append(packed)
-                ages.append(ages_rows)
-            res = dict(entries=entries, caps=(self._seg_cap, kcap),
-                       packed=_to_host(seg.stack_rows(packs)),
-                       ages=_to_host(seg.stack_rows(ages))
-                       if self.need_ages else None, events=[])
+                ha, hb, w0, w1 = (x for x, _ in e["dev"])
+                fwd = dec.forward_pass(ha, hb, e["frm"], e["t_len"])
+            if counted and not rows:
+                self._drain_group()
+            with self.timer.span("fastsmc.dispatch"):
+                if counted:
+                    rows.append(self._extract(counted.pop()))
+                counted.append(dec.count_pass(
+                    fwd, self.state_threshold, e["s0"], e["s1"],
+                    self.prob_threshold, self.age_threshold, self.need_ages,
+                    w0, w1))
+                del fwd                  # alpha, once the backward has read it
+        if not rows:
+            self._drain_group()
+        with self.timer.span("fastsmc.dispatch"):
+            rows.append(self._extract(counted.pop()))
+            packs, ages = zip(*rows)
+            res = dict(entries=entries, packed=_flat_to_host(packs),
+                       ages=_flat_to_host(ages) if self.need_ages else None,
+                       events=[])
             for dev in self._devices:
                 if dev.type == "cuda":
                     with on_device(dev):
@@ -519,80 +534,61 @@ class FastSMC:
                         res["events"][-1].record()
         return res
 
-    def _decode(self, e: dict, cap: int, kcap: int):
-        ha, hb, w0, w1 = (x for x, _ in e["dev"])
-        return self.decoder.decode_extract_packed(
-            ha, hb, e["frm"], e["t_len"], self.state_threshold, e["s0"],
-            e["s1"], self.prob_threshold, cap, self._pps_cap,
-            self.age_threshold, need_ages=self.need_ages, w0=w0, w1=w1,
-            kcap=kcap)
+    def _extract(self, counted):
+        """A counted batch's extraction at the caps its counts size, once
+        the host has read them."""
+        with self.timer.span("fastsmc.dispatch.count_wait"):
+            counts = self.decoder.read_counts(counted)
+        self.stats["d2h_bytes"] += 8 * len(counts)
+        cap, kcap = seg.sized_caps(counts)
+        return self.decoder.extract_counted(counted, cap, kcap,
+                                            self.age_threshold)
 
     @staticmethod
     def _unpack_entry(packed_i: np.ndarray, e: dict):
         """(start, b, score) of one entry's packed row, flat or per shard
-        ([S, 3*kcap+2], merged), sliced to its kept runs, and the kept and
-        raw counts of each row (fastsmc.py:625-639)."""
+        ([S, 3*kcap+2], merged), sliced to its kept runs, and the kept
+        counts of each row (fastsmc.py:625-639)."""
         if packed_i.ndim == 2:
-            return seg.merge_packed_shards(packed_i, e["t_len"],
-                                           e["P"] // packed_i.shape[0])
+            start, b, score, ns_kept, _ = seg.merge_packed_shards(
+                packed_i, e["t_len"], e["P"] // packed_i.shape[0])
+            return start, b, score, ns_kept
         kcap = (len(packed_i) - 2) // 3
-        start, b, score, nk, nr = seg.unpack_extract_rows(packed_i, kcap)
-        k = min(nk, kcap)
-        return start[:k], b[:k], score[:k], [nk], [nr]
+        start, b, score, nk, _ = seg.unpack_extract_rows(packed_i, kcap)
+        return start[:nk], b[:nk], score[:nk], [nk]
 
     @staticmethod
     def _merge_entry_ages(ages_i: np.ndarray, ns_kept) -> np.ndarray:
         """[2, n_kept] age rows aligned with the kept runs, from a flat
-        [2, capp] or per-shard [S, 2, capp] row (fastsmc.py:641-651)."""
-        capp = ages_i.shape[-1]
+        [2, kcap] or per-shard [S, 2, kcap] row (fastsmc.py:641-651)."""
         if ages_i.ndim == 3:
-            return np.concatenate([a[:, :min(n, capp)]
-                                   for a, n in zip(ages_i, ns_kept)], axis=1)
-        return ages_i[:, :min(ns_kept[0], capp)]
-
-    def _grow_caps(self, n_raw: int, n_kept: int):
-        while self._seg_cap < n_raw:
-            self._seg_cap *= 2
-        while self._kept_cap < n_kept:
-            self._kept_cap *= 2
-        while self.need_ages and self._pps_cap < n_kept:
-            self._pps_cap *= 2
-        # the raw pass bounds what can be kept
-        self._seg_cap = max(self._seg_cap, self._kept_cap)
+            return np.concatenate([a[:, :n] for a, n in zip(ages_i, ns_kept)],
+                                  axis=1)
+        return ages_i[:, :ns_kept[0]]
 
     def _drain_group(self):
-        """Wait for the pending group's event, unpack its rows, redo the
-        entries that overflowed a cap, write its records, and checkpoint
-        every CHECKPOINT_DRAINS drains."""
+        """Wait for the pending group's event, unpack its rows, write its
+        records, and checkpoint every CHECKPOINT_DRAINS drains."""
         if self._gpending is None:
             return
         res, self._gpending = self._gpending, None
         entries = res["entries"]
-        st = self.stats
         with self.timer.span("fastsmc.drain"):
             with self.timer.span("fastsmc.drain.wait"):
                 for event in res["events"]:
                     event.synchronize()
-            packed = res["packed"].numpy()
-            ages = None if res["ages"] is None else res["ages"].numpy()
-            st["d2h_bytes"] += packed.nbytes + (0 if ages is None
-                                                else ages.nbytes)
-            raw_cap, kcap = res["caps"]
+            packed = _split_rows(*res["packed"])
+            ages = [None] * len(entries) if res["ages"] is None \
+                else _split_rows(*res["ages"])
+            self.stats["d2h_bytes"] += sum(res[k][0].nbytes for k in
+                                           ("packed", "ages") if res[k])
             out = []
-            for i, e in enumerate(entries):
-                start, b, score, ns_kept, ns_raw = self._unpack_entry(
-                    packed[i], e)
-                nk, nr = max(ns_kept), max(ns_raw)
-                if nr > raw_cap or nk > kcap \
-                        or (ages is not None and nk > ages.shape[-1]):
-                    st["overflow_redos"] += 1
-                    self._grow_caps(nr, nk)
-                    out.append(self._redo_entry(e))
-                    continue
+            for e, packed_i, ages_i in zip(entries, packed, ages):
+                start, b, score, ns_kept = self._unpack_entry(packed_i, e)
                 out.append((seg.runs_from_packed(start, b, score,
                                                  e["t_len"]),
-                            None if ages is None
-                            else self._merge_entry_ages(ages[i], ns_kept)))
+                            None if ages_i is None
+                            else self._merge_entry_ages(ages_i, ns_kept)))
         for e, (runs, ages_e) in zip(entries, out):
             self._emit_runs(e, *runs, ages=ages_e)
         # the checkpoint names only batches whose records reached the
@@ -601,45 +597,6 @@ class FastSMC:
         if self._drains_since_ckpt >= CHECKPOINT_DRAINS:
             self._drains_since_ckpt = 0
             self._write_progress(entries[-1]["idx"])
-
-    def _redo_entry(self, e: dict):
-        """The entry again at the grown caps, through the same path as a
-        normal batch (fastsmc.py:743-803): with ages a new decode (the
-        posterior was a temporary), without ages a new extraction from the
-        saved threshold sums; repeated until nothing overflows. Returns
-        ((pair, a, b, score), ages or None) as the drain does, so the
-        bytes equal those of a large enough first cap."""
-        with self.timer.span("fastsmc.drain.redo"):
-            while True:
-                raw_cap = self._seg_cap
-                kcap = min(self._kept_cap, raw_cap)
-                if self.need_ages:
-                    packed_d, ages_d, _ = self._decode(e, raw_cap, kcap)
-                else:
-                    # one flat row from the whole batch's threshold sums,
-                    # also with a mesh: the same runs in the same order
-                    with self.timer.span("fastsmc.extract"):
-                        th = e["th"] if e["w0"] is None \
-                            else seg.mask_window(e["th"], e["w0"], e["w1"])
-                        packed_d, _ = seg.extract_packed(
-                            th, e["s0"], e["s1"], self.prob_threshold,
-                            raw_cap, kcap=kcap)
-                    ages_d = None
-                with self.timer.span("fastsmc.drain.wait"):
-                    packed = packed_d.cpu().numpy()
-                    ages = None if ages_d is None else ages_d.cpu().numpy()
-                self.stats["d2h_bytes"] += packed.nbytes + (
-                    0 if ages is None else ages.nbytes)
-                start, b, score, ns_kept, ns_raw = \
-                    self._unpack_entry(packed, e)
-                nk, nr = max(ns_kept), max(ns_raw)
-                if nr <= raw_cap and nk <= kcap \
-                        and (ages is None or nk <= ages.shape[-1]):
-                    break
-                self._grow_caps(nr, nk)
-            return (seg.runs_from_packed(start, b, score, e["t_len"]),
-                    None if ages is None
-                    else self._merge_entry_ages(ages, ns_kept))
 
     def _emit_runs(self, e, pair, a, b, score_sum, ages=None):
         """Write one batch's kept runs (window-relative a/b); ``ages`` is
@@ -694,7 +651,8 @@ class FastSMC:
         batcher's and the checkpoints', the writer's format and deflate
         (thread-seconds, summed over its workers) and the scan thread's;
         then the text writer's worker threads, the gzip members it wrote
-        and the wall seconds in which at least one worker was busy."""
+        and the wall seconds in which at least one worker was busy; last
+        the dispatch's waits for the batches' run counts."""
         sp = self.timer
         wait = sp.total_s("fastsmc.drain.wait")
         return {
@@ -709,6 +667,7 @@ class FastSMC:
             "writer_workers": getattr(self._writer, "workers", 0),
             "writer_chunks": int(sp.counter(writers.CHUNKS)),
             "writer_busy_s": sp.counter(writers.BUSY),
+            "count_wait_s": sp.total_s("fastsmc.dispatch.count_wait"),
         }
 
     # ------------------------------------------------------------------
@@ -801,12 +760,16 @@ class FastSMC:
         return path
 
 
-def _to_host(x: torch.Tensor) -> torch.Tensor:
-    """``x`` on the host: for a CUDA tensor a pinned buffer with the copy
-    queued (read it after an event recorded later has fired); a CPU tensor
-    as it is."""
-    if x.device.type != "cuda":
-        return x
-    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    h.copy_(x, non_blocking=True)
-    return h
+def _flat_to_host(rows) -> tuple:
+    """A group's rows (one tensor a batch, each its own shape) in one copy
+    to the host (``kernels.to_host``): ``(flat tensor, shapes)``."""
+    return (to_host(torch.cat([r.reshape(-1) for r in rows])),
+            [tuple(r.shape) for r in rows])
+
+
+def _split_rows(flat: torch.Tensor, shapes) -> list:
+    """The rows of :func:`_flat_to_host`'s copy as arrays, once its event
+    has fired."""
+    ends = np.cumsum([int(np.prod(s)) for s in shapes])[:-1]
+    return [x.reshape(s) for x, s in zip(np.split(flat.numpy(), ends),
+                                         shapes)]

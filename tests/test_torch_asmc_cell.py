@@ -21,7 +21,9 @@ def test_cut_cell_runs_one_job_correct(tmp_path):
     cell.config.pop("morgans")
     cell.config["check"]["block_pairs"] = 256
     cell.traffic["warmup"] = {"jobs": 2048, "job": 1}
-    res = harness.run_cell(cell, 2 ** 33 + 5, 0.5, False, "cpu",
+    # a window shorter than any job: it ends after its first job however
+    # fast the job runs
+    res = harness.run_cell(cell, 2 ** 33 + 5, 1e-3, False, "cpu",
                            time.time(), sut, str(tmp_path))
     limit = cell.config["check"]["limits"]["sums_gap"]
     assert res["check"]["sums_gap"]["limit"] == limit

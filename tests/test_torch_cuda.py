@@ -622,18 +622,26 @@ def test_alpha_wall_backward_at_its_edges(cuda, name, P, KA):
 
 
 def _packed_call(dec, inputs):
-    """decode_extract_packed on a 512-site window of 128 pairs, each with
-    its own scan window, ages on, caps that hold every run; ``inputs`` are
-    the pair and window arrays, as host arrays or staged tensors."""
+    """A 512-site window of 128 pairs, each with its own scan window, ages
+    on, through the primitives in the order FastSMC's dispatch calls them:
+    forward, backward and count, the host's read of the counts, the
+    compaction at the caps they size. ``inputs`` are the pair and window
+    arrays, as host arrays or staged tensors; returns ``(packed, ages,
+    threshold sums)``, the last masked to the windows (on a mesh, the
+    shards' side by side on the first device)."""
     from fastsmc_tpu_torch.engine import segments as seg
     ha, hb, w0, w1 = inputs
     dq = DecodingQuantities.load_npz(DQ)
     st = seg.state_threshold(dq.discretization, params_for(1024).time,
                              dq.states)
     prob = seg.probability_threshold(dq.initial_state_prob, st)
-    return dec.decode_extract_packed(ha, hb, 1024, 512, st, 0, 512, prob,
-                                     4096, 4096, dq.states, need_ages=True,
-                                     w0=w0, w1=w1)
+    c = dec.count_pass(dec.forward_pass(ha, hb, 1024, 512), st, 0, 512,
+                       prob, dq.states, True, w0, w1)
+    cap, kcap = seg.sized_caps(dec.read_counts(c))
+    packed, ages = dec.extract_counted(c, cap, kcap, dq.states)
+    th = c.th if not isinstance(c, list) else torch.cat(
+        [x.th.to(packed.device) for x in c], dim=1)
+    return packed, ages, th
 
 
 def _packed_inputs(seed=4, P=128):
@@ -645,32 +653,42 @@ def _packed_inputs(seed=4, P=128):
     return ha, hb, w0, w1
 
 
-def test_decode_extract_packed_waits_for_nothing(gpu):
-    """Staging a batch, its decode and capped extraction, and the copy of
-    its packed row to pinned memory make no call that waits for the card
-    (torch.cuda.set_sync_debug_mode("error") raises on one)."""
-    from fastsmc_tpu_torch.pipelines.fastsmc import _to_host
+def test_decode_extract_packed_waits_for_nothing(ctx, tmp_path):
+    """FastSMC's dispatch as it runs (``FastSMC._queue_group``: staging, the
+    forward ahead, each batch's backward and count, the host's read of the
+    counts, the sized extraction, the group's rows to pinned memory and
+    the previous group's drain) makes no call that waits for the card
+    (torch.cuda.set_sync_debug_mode("error") raises on one) but the event
+    waits, which the mode lets pass: every flush group after the first of
+    a hashing run on ``ctx``'s panel, in groups of 2, ages on."""
+    from fastsmc_tpu_torch.pipelines.fastsmc import FastSMC
 
-    arrays = _packed_inputs()
+    params = params_for(1024)
+    params.out_file_root = str(tmp_path / "out")
+    params.use_known_seed = True
+    params.do_per_pair_posterior_mean = params.do_per_pair_map = True
+    f = FastSMC(params.finalize(), data=ctx.data,
+                dq=DecodingQuantities.load_npz(DQ), device="cuda",
+                flush_group=2)
+    queue, groups = f._queue_group, []
 
-    def queue():
-        staged = [kernels.stage(x, gpu.device) for x in arrays]
-        packed, ages, _ = _packed_call(gpu, [d for d, _ in staged])
-        rows = (_to_host(packed), _to_host(ages))
-        event = torch.cuda.Event()
-        event.record()
-        return staged, rows, event
+    def checked(entries):
+        if not groups:
+            groups.append(0)
+            return queue(entries)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = queue(entries)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        groups.append(len(entries))
+        return res
 
-    queue()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        staged, (packed, ages), event = queue()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    event.synchronize()
-    assert packed.is_pinned() and packed.dtype == torch.int32
-    assert 0 < int(packed[-2]) <= 4096 and ages.shape == (2, 4096)
+    f._queue_group = checked
+    path = f.run(verbose=False)
+    assert len(groups) > 2 and sum(groups) > 2
+    assert f.stats["overflow_redos"] == 0 and f.n_segments > 0
+    assert os.path.getsize(path) > 0
 
 
 def test_packed_rows_match_the_cpu_plain_path(gpu, ctx):
@@ -685,9 +703,10 @@ def test_packed_rows_match_the_cpu_plain_path(gpu, ctx):
     want = _packed_call(kernels.GpuDecoder(ctx, "cpu"), arrays)
     runs = []
     for packed, ages, _ in (got, want):
+        kcap = (len(packed) - 2) // 3
         start, b, score, nk, nr = seg.unpack_extract_rows(
-            packed.cpu().numpy(), 4096)
-        assert nk <= 4096 and nr <= 4096
+            packed.cpu().numpy(), kcap)
+        assert 0 < nk <= kcap <= nr + 256
         runs.append((start[:nk], b[:nk], score[:nk],
                      ages.cpu().numpy()[:, :nk]))
     (gs, gb, gscore, gages), (ws, wb, wscore, wages) = runs
@@ -731,7 +750,7 @@ def test_mesh_on_one_card_matches_meshless(gpu, ctx):
     start, b, score, ns_kept, _ = seg.merge_packed_shards(
         packed.cpu().numpy(), 512, len(arrays[0]) // 2)
     f_start, f_b, f_score, nk, _ = seg.unpack_extract_rows(
-        f_packed.cpu().numpy(), 4096)
+        f_packed.cpu().numpy(), (len(f_packed) - 2) // 3)
     assert sum(ns_kept) == nk > 0
     np.testing.assert_array_equal(start, f_start[:nk])
     np.testing.assert_array_equal(b, f_b[:nk])

@@ -4,9 +4,9 @@ versions of the kernels), against the JAX package's FastSMC
 split) where the JAX package has the behaviour: arrival-order batches
 (bucket_sites=0), sorted batches, permissive windows and the
 posterior-budget split give the same record keys in the same order,
-floats at test_torch_pipeline's FLOAT_RTOL (1e-4). Resume, tiny starting
-caps (overflow redo) and the flush group size must not change a byte of
-the decompressed output."""
+floats at test_torch_pipeline's FLOAT_RTOL (1e-4). Resume, the caps sized
+from each batch's run counts and the flush group size must not change a
+byte of the decompressed output."""
 
 import gzip
 import os
@@ -19,8 +19,10 @@ from fastsmc_tpu.pipelines.fastsmc import FastSMC as JaxFastSMC
 
 import fastsmc_tpu_torch
 from fastsmc_tpu_torch.pipelines import fastsmc as pipeline
+from fastsmc_tpu_torch.engine import segments as seg
 from test_torch_pipeline import (_assert_same_records,  # noqa: F401
-                                 _records, _tiny_params, tiny_panel)
+                                 _records, _tiny_params, mosaic_panel,
+                                 mosaic_params, tiny_panel)
 
 
 def _bytes(path):
@@ -177,25 +179,53 @@ def test_canonical_windows_batch_invariant(synthetic_panel_root, repo_root,
 
 
 @pytest.mark.parametrize("ages", [True, False], ids=["ages", "no_ages"])
-def test_tiny_caps_redo_gives_identical_output(tiny_panel, repo_root,
-                                               tmp_path, ages):
-    """Every cap started at 8: the batches overflow, are redone at grown
-    caps (re-decoded with ages, re-extracted from the threshold sums
-    without) and the output equals the default caps' byte for byte."""
-    def run(tag, caps=None):
-        params = _tiny_params(tiny_panel, repo_root, str(tmp_path / tag))
+def test_tiny_caps_redo_gives_identical_output(mosaic_panel, repo_root,
+                                               tmp_path, monkeypatch, ages):
+    """Batches with more runs than the JAX package's starting caps (raw
+    and kept 4,096; the port's before its caps were counted), in flush
+    groups of 2: each batch is extracted once, at caps no smaller than its
+    counts, and the output equals, byte for byte, a run whose caps (T*P,
+    every site a boundary) no batch can fill. With ages, the records are
+    the JAX package's on the same panel and parameters (keys equal, floats
+    at FLOAT_RTOL)."""
+    counts, caps = [], []
+    compact_runs = seg.compact_runs
+
+    def spy(th, s1, rc, cap, kcap, posterior=None):
+        counts.append(tuple(rc.counts.tolist()))
+        caps.append((cap, kcap))
+        return compact_runs(th, s1, rc, cap, kcap, posterior)
+
+    def run(tag):
+        params = mosaic_params(mosaic_panel, repo_root, str(tmp_path / tag))
         params.do_per_pair_posterior_mean = params.do_per_pair_map = ages
         f = fastsmc_tpu_torch.FastSMC(params, device="cpu", flush_group=2)
-        if caps:
-            f._seg_cap = f._kept_cap = f._pps_cap = caps
         return f, _bytes(f.run(verbose=False))
 
-    f0, want = run("default")
-    f1, got = run("tiny", caps=8)
-    assert f0.stats["overflow_redos"] == 0
-    assert f1.stats["overflow_redos"] > 0 and f1._kept_cap > 8
+    monkeypatch.setattr(seg, "compact_runs", spy)
+    f1, got = run("counted")
+    n = len(caps)
+    monkeypatch.setattr(seg, "sized_caps", lambda _: (1024 * 64, 1024 * 64))
+    f0, want = run("whole")
+    assert n == 5 and len(caps) == 2 * n
+    assert max(c[0] for c in counts) > 8192 and \
+        max(c[1] for c in counts) > 4096
+    for (n_raw, n_kept), (cap, kcap) in zip(counts[:n], caps[:n]):
+        assert n_raw <= cap < n_raw + 256 and n_kept <= kcap < n_kept + 256
+    assert f0.stats["overflow_redos"] == f1.stats["overflow_redos"] == 0
     assert got == want and len(want.splitlines()[0].split(b"\t")) == \
         (13 if ages else 11)
+    if ages:
+        jp = JaxParams.fastsmc_defaults(
+            mosaic_panel, str(repo_root / "artifacts" /
+                              "n300.array.decodingQuantities.npz"),
+            str(tmp_path / "jax"), use_known_seed=True, min_m=0.5, jobs=25,
+            job_ind=2, batch_size=64)
+        jp.hashing = False
+        _assert_same_records(
+            _records(f1.params.ibd_output_path()),
+            _records(JaxFastSMC(jp, use_pallas="interpret", flush_group=2)
+                     .run(verbose=False)))
 
 
 @pytest.mark.parametrize("group", [1, 2])
@@ -244,9 +274,10 @@ def test_roofline_has_the_jax_keys(tiny_panel, repo_root, tmp_path):
     f.run(verbose=False)
     got = f.roofline()
     # the JAX package's keys, then the text writer's pool (its workers,
-    # the members it wrote, its busy wall), which the JAX writer lacks
+    # the members it wrote, its busy wall), which the JAX writer lacks,
+    # and the waits for the run counts, which the JAX package never reads
     assert list(got) == list(want) + ["writer_workers", "writer_chunks",
-                                      "writer_busy_s"]
+                                      "writer_busy_s", "count_wait_s"]
     assert got["d2h_mb"] > 0 and got["scan_thread_s"] > 0
     assert all(v >= 0 for v in got.values())
 

@@ -5,10 +5,11 @@ sit at and next to the four level thresholds.
 
 Run bounds and counts must be identical; scores agree to rtol 1e-6 and
 per-run state sums to atol 1e-6 (f32 sums in another order); the
-posterior-mean age to rtol 1e-5; the MAP age must be equal. The capped
-extraction (extract_packed, the pipeline's) must give the uncapped plain
-version's runs, scores and state sums bit for bit wherever its caps hold
-them, and report the true counts where they do not."""
+posterior-mean age to rtol 1e-5; the MAP age must be equal. The
+pipeline's two phases (count_runs, then compact_runs at the caps
+sized_caps gives) must count exactly the plain version's runs and give
+its runs, scores and state sums bit for bit; below its counts a
+compaction keeps its first runs and reports the true counts."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -141,46 +142,128 @@ def _packed_runs(packed, kcap, T):
     return pair, a, b, score, nk, nr
 
 
-@pytest.mark.parametrize("seed,T,P,s0,s1", CASES)
-def test_capped_extraction_matches_plain(seed, T, P, s0, s1):
-    th = _th(seed, T, P)
+def _masked(seed, T, P, windowed=True):
+    th = torch.from_numpy(_th(seed, T, P))
+    if not windowed:
+        return th
     w0, w1 = _windows(seed, T, P)
-    tm = seg.mask_window(torch.from_numpy(th), torch.from_numpy(w0),
-                         torch.from_numpy(w1))
-    pair, a, b, score = (x.numpy() for x in
-                         seg.extract_kept_runs(tm, s0, s1, PROB))
-    n_raw = len(seg.boundaries_runs(tm, s0, s1, PROB)[0])
+    return seg.mask_window(th, torch.from_numpy(w0), torch.from_numpy(w1))
+
+
+def _plain(tm, s0, s1):
+    """The uncapped plain version's kept runs and scores, and the raw
+    boundary count."""
+    runs = tuple(x.numpy() for x in seg.extract_kept_runs(tm, s0, s1, PROB))
+    return runs, len(seg.boundaries_runs(tm, s0, s1, PROB)[0])
+
+
+@pytest.mark.parametrize("windowed", [True, False], ids=["windows", "whole"])
+@pytest.mark.parametrize("seed,T,P,s0,s1", CASES)
+def test_count_phase_counts_the_plain_runs(seed, T, P, s0, s1, windowed):
+    """count_runs' n_raw and n_kept are the lengths of boundaries_runs and
+    extract_kept_runs, in one int32 tensor; its levels and flags are the
+    plain version's."""
+    tm = _masked(seed, T, P, windowed)
+    (pair, *_), n_raw = _plain(tm, s0, s1)
+    rc = seg.count_runs(tm, s0, s1, PROB)
+    assert rc.counts.dtype == torch.int32 and rc.counts.shape == (2,)
+    assert rc.counts.tolist() == [n_raw, len(pair)] and len(pair) > 0
+    lvl_t = seg.levels(tm, s0, s1, PROB)
+    assert torch.equal(rc.lvl_t, lvl_t)
+    assert torch.equal(rc.flags, seg._changes(lvl_t))
+
+
+@pytest.mark.parametrize("windowed", [True, False], ids=["windows", "whole"])
+@pytest.mark.parametrize("seed,T,P,s0,s1", CASES)
+def test_sized_compaction_holds_every_run(seed, T, P, s0, s1, windowed):
+    """At the caps sized from its counts the compaction returns exactly the
+    plain version's kept runs and scores, and run_pps' rows, with no
+    truncation; the caps are the counts rounded up to a multiple of 256."""
+    tm = _masked(seed, T, P, windowed)
+    (pair, a, b, score), n_raw = _plain(tm, s0, s1)
     n = len(pair)
     rng = np.random.default_rng(seed + 3)
     post = torch.from_numpy(rng.random((T, 5, P)).astype(np.float32))
     want_pps = seg.run_pps(post, *(torch.from_numpy(x) for x in (pair, a, b)))
-    for cap, kcap in ((n_raw, n), (T * P, 0), (n_raw + 3, n + 7)):
-        packed, pps = seg.extract_packed(tm, s0, s1, PROB, cap, post,
-                                         pps_cap=n + 1, kcap=kcap)
+    rc = seg.count_runs(tm, s0, s1, PROB)
+    cap, kcap = seg.sized_caps([tuple(rc.counts.tolist())])
+    assert (cap, kcap) == (-(-n_raw // 256) * 256, -(-n // 256) * 256)
+    packed, pps = seg.compact_runs(tm, s1, rc, cap, kcap, post)
+    assert packed.shape == (3 * kcap + 2,) and pps.shape == (kcap, 5)
+    got = _packed_runs(packed, kcap, T)
+    assert got[4:] == (n, n_raw)
+    for x, y in zip(got[:4], (pair, a, b, score)):
+        np.testing.assert_array_equal(x, y)
+    assert torch.equal(pps[:n], want_pps) and not pps[n:].any()
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_mesh_caps_are_the_largest_shards_count(S):
+    """A CPU mesh's shards (contiguous slices of the pair axis) each count
+    their own runs; the caps are sized from the largest shard's counts,
+    every shard's row holds all its runs at them, and the merged rows are
+    the meshless extraction's."""
+    seed, T, P, s0, s1 = 4, 256, 32, 0, 200
+    tm = _masked(seed, T, P)
+    (pair, a, b, score), n_raw = _plain(tm, s0, s1)
+    Pl = P // S
+    shards = [tm[:, s * Pl:(s + 1) * Pl] for s in range(S)]
+    rcs = [seg.count_runs(x, s0, s1, PROB) for x in shards]
+    counts = [tuple(rc.counts.tolist()) for rc in rcs]
+    assert len(set(counts)) > 1 and sum(c[0] for c in counts) == n_raw
+    cap, kcap = seg.sized_caps(counts)
+    assert (cap, kcap) == seg.sized_caps([(max(c[0] for c in counts),
+                                           max(c[1] for c in counts))])
+    mat = np.stack([seg.compact_runs(x, s1, rc, cap, kcap)[0].numpy()
+                    for x, rc in zip(shards, rcs)])
+    start, bb, sc, ns_kept, ns_raw = seg.merge_packed_shards(mat, T, Pl)
+    assert list(zip(ns_raw, ns_kept)) == counts
+    np.testing.assert_array_equal(start // T, pair)
+    np.testing.assert_array_equal(start % T, a)
+    np.testing.assert_array_equal(bb, b)
+    np.testing.assert_array_equal(sc, score)
+
+
+@pytest.mark.parametrize("seed,T,P,s0,s1", CASES)
+def test_capped_extraction_matches_plain(seed, T, P, s0, s1):
+    """The compaction at caps at or above the counts (exactly the counts,
+    every site a boundary, a few over) gives the plain version's runs,
+    scores and state sums bit for bit."""
+    tm = _masked(seed, T, P)
+    (pair, a, b, score), n_raw = _plain(tm, s0, s1)
+    n = len(pair)
+    rng = np.random.default_rng(seed + 3)
+    post = torch.from_numpy(rng.random((T, 5, P)).astype(np.float32))
+    want_pps = seg.run_pps(post, *(torch.from_numpy(x) for x in (pair, a, b)))
+    rc = seg.count_runs(tm, s0, s1, PROB)
+    for cap, kcap in ((n_raw, n), (T * P, T * P), (n_raw + 3, n + 7)):
+        packed, pps = seg.compact_runs(tm, s1, rc, cap, kcap, post)
         assert packed.dtype == torch.int32
-        assert packed.shape == (3 * (kcap or cap) + 2,)
-        got = _packed_runs(packed, kcap or cap, T)
+        assert packed.shape == (3 * kcap + 2,)
+        got = _packed_runs(packed, kcap, T)
         assert got[4:] == (n, n_raw)
         for x, y in zip(got[:4], (pair, a, b, score)):
             np.testing.assert_array_equal(x, y)
-        assert pps.shape == (min(n + 1, kcap or cap), 5)
+        assert pps.shape == (kcap, 5)
         assert torch.equal(pps[:n], want_pps) and not pps[n:].any()
 
 
 @pytest.mark.parametrize("seed,T,P,s0,s1", CASES)
 def test_capped_extraction_reports_overflow(seed, T, P, s0, s1):
-    """A kept cap below the count keeps the first kcap runs exactly and
-    reports the true kept count; a raw cap below the count reports the
-    true raw count (the pipeline then redoes the batch)."""
+    """Below its count a pass keeps its first runs and the row holds the
+    true counts: a kept cap below the count keeps the first kcap runs
+    exactly and reports the true kept count; a raw cap below the count
+    reports the true raw count. (The pipeline's caps, from sized_caps,
+    are never below the counts.)"""
     th = torch.from_numpy(_th(seed, T, P))
-    pair, a, b, score = (x.numpy() for x in
-                         seg.extract_kept_runs(th, s0, s1, PROB))
-    n, n_raw = len(pair), len(seg.boundaries_runs(th, s0, s1, PROB)[0])
+    (pair, a, b, score), n_raw = _plain(th, s0, s1)
+    n = len(pair)
+    rc = seg.count_runs(th, s0, s1, PROB)
     kcap = n // 2
-    packed, _ = seg.extract_packed(th, s0, s1, PROB, n_raw, kcap=kcap)
+    packed, _ = seg.compact_runs(th, s1, rc, n_raw, kcap)
     got = _packed_runs(packed, kcap, T)
     assert got[4:] == (n, n_raw) and n > kcap
     for x, y in zip(got[:4], (pair, a, b, score)):
         np.testing.assert_array_equal(x, y[:kcap])
-    packed, _ = seg.extract_packed(th, s0, s1, PROB, n_raw // 2)
+    packed, _ = seg.compact_runs(th, s1, rc, n_raw // 2, n_raw // 2)
     assert _packed_runs(packed, n_raw // 2, T)[5] == n_raw

@@ -35,7 +35,8 @@ from fastsmc_tpu_torch.parallel import (ShardedDecoder, make_mesh,
                                         training_step)
 from fastsmc_tpu_torch.pipelines import asmc
 from test_torch_host import contexts
-from test_torch_pipeline import _assert_same_records, _records
+from test_torch_pipeline import (_assert_same_records,  # noqa: F401
+                                 _records, mosaic_panel, mosaic_params)
 
 ALL = BwdOutputs(posterior=True, posterior_sums=True, per_pair_mean=True,
                  per_pair_map=True, threshold_sums=True,
@@ -116,11 +117,28 @@ def test_sharded_decoder_matches_jax_mesh(ctxs):
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-3)
 
 
+def _extract_one(dec, ha, hb, t0, T, st, s0, s1, prob, age, need_ages=True,
+                 w0=None, w1=None):
+    """One batch through the primitives in the order FastSMC's dispatch
+    calls them (``_queue_group``, ``_extract``): the forward, the backward
+    and count, the host's read of the counts, the compaction at the caps
+    they size. ``(packed, ages, threshold sums)``, the last a ``Counted``'s
+    (a list of them on a mesh)."""
+    c = dec.count_pass(dec.forward_pass(ha, hb, t0, T), st, s0, s1, prob,
+                       age, need_ages, w0, w1)
+    cap, kcap = seg.sized_caps(dec.read_counts(c))
+    packed, ages = dec.extract_counted(c, cap, kcap, age)
+    th = torch.cat([x.th for x in c], dim=1) if isinstance(c, list) \
+        else c.th
+    return packed, ages, th
+
+
 @pytest.mark.parametrize("need_ages", [True, False], ids=["ages", "no-ages"])
 def test_decode_extract_packed_merges_to_meshless(ctxs, need_ages):
     """The per-shard packed rows, merged by merge_packed_shards, give the
-    meshless extraction's kept runs, scores and age rows; the threshold
-    sums come back whole."""
+    meshless extraction's kept runs, scores and age rows, at the kept cap
+    of the largest shard's count; the (window-masked) threshold sums come
+    back whole."""
     _, ctx = ctxs
     ha, hb = _pairs(ctx.data.n_haps, 16, seed=1)
     ha[::2] = 4 * np.arange(8)       # identical pairs: long kept runs
@@ -129,20 +147,21 @@ def test_decode_extract_packed_merges_to_meshless(ctxs, need_ages):
     rng = np.random.default_rng(2)
     w0 = rng.integers(0, 64, 16).astype(np.int32)
     w1 = (w0 + rng.integers(64, 192, 16)).astype(np.int32)
-    args = (64, T, 11, 0, T, 0.0002, 512, 512, 11, need_ages, w0, w1)
+    args = (64, T, 11, 0, T, 0.0002, 11, need_ages, w0, w1)
     mesh = cpu_mesh(4)
-    packed, ages, th = ShardedDecoder(ctx, mesh).decode_extract_packed(
-        ha, hb, *args)
-    f_packed, f_ages, f_th = GpuDecoder(ctx, "cpu").decode_extract_packed(
-        ha, hb, *args)
-    assert packed.shape == (4, 3 * 512 + 2)
+    packed, ages, th = _extract_one(ShardedDecoder(ctx, mesh), ha, hb, *args)
+    f_packed, f_ages, f_th = _extract_one(GpuDecoder(ctx, "cpu"), ha, hb,
+                                          *args)
+    assert packed.shape[0] == 4
     assert torch.equal(th, f_th)
     start, b, score, ns_kept, ns_raw = seg.merge_packed_shards(
         packed.numpy(), T, 4)
     kcap = (len(f_packed) - 2) // 3
     f_start, f_b, f_score, nk, nr = seg.unpack_extract_rows(
         f_packed.numpy(), kcap)
-    assert sum(ns_kept) == nk > 0 and max(ns_raw) <= 512 and nr <= 512
+    assert sum(ns_kept) == nk > 0 and nr == sum(ns_raw)
+    assert (packed.shape[1] - 2) // 3 == seg.sized_caps(
+        zip(ns_raw, ns_kept))[1]
     np.testing.assert_array_equal(start, f_start[:nk])
     np.testing.assert_array_equal(b, f_b[:nk])
     np.testing.assert_array_equal(score, f_score[:nk])
@@ -167,8 +186,8 @@ def test_batch_not_divisible_by_the_mesh_raises(ctxs, synthetic_panel_root,
         if call == "decode_pairs":
             ShardedDecoder(ctx, mesh).decode_pairs(ha, hb, 0, 64)
         elif call == "decode_extract_packed":
-            ShardedDecoder(ctx, mesh).decode_extract_packed(
-                ha, hb, 0, 64, 11, 0, 64, 0.0002, 512, 512, 11)
+            _extract_one(ShardedDecoder(ctx, mesh), ha, hb, 0, 64, 11, 0, 64,
+                         0.0002, 11)
         elif call == "FastSMC":
             fastsmc_tpu_torch.FastSMC(DecodingParams.fastsmc_defaults(
                 root, dq, str(d / "div"), use_known_seed=True,
@@ -219,14 +238,12 @@ def test_training_step_runs(ctxs):
 # the pipelines on a mesh
 # ---------------------------------------------------------------------------
 
-def _fastsmc(root, dq, out, mesh=None, caps=None, data=None, **kw):
+def _fastsmc(root, dq, out, mesh=None, data=None, params=None, **kw):
     kw.setdefault("batch_size", 16)
     f = fastsmc_tpu_torch.FastSMC(
-        DecodingParams.fastsmc_defaults(root, dq, out, use_known_seed=True,
-                                        min_m=0.5, **kw),
+        params or DecodingParams.fastsmc_defaults(
+            root, dq, out, use_known_seed=True, min_m=0.5, **kw),
         data=data, device=None if mesh else "cpu", mesh=mesh)
-    if caps:
-        f._seg_cap = f._kept_cap = f._pps_cap = caps
     path = f.run(verbose=False)
     with gzip.open(path, "rb") as fh:
         return f, path, fh.read()
@@ -234,17 +251,36 @@ def _fastsmc(root, dq, out, mesh=None, caps=None, data=None, **kw):
 
 @pytest.mark.parametrize("S,caps", [(1, None), (2, None), (4, None), (4, 8)],
                          ids=["S1", "S2", "S4", "S4-caps8"])
-def test_fastsmc_mesh_writes_the_meshless_bytes(synthetic_panel_root, S,
-                                                caps):
-    """FastSMC over S shards writes the meshless run's bytes; with every
-    cap started at 8, shards overflow and their batches are redone."""
+def test_fastsmc_mesh_writes_the_meshless_bytes(synthetic_panel_root,
+                                                mosaic_panel, repo_root,
+                                                monkeypatch, S, caps):
+    """FastSMC over S shards writes the meshless run's bytes. The caps
+    case: on a panel whose shards each hold more runs than the JAX
+    package's starting caps (raw and kept 4,096; the port's before its
+    caps were counted), without hashing in batches of 128 pairs, every
+    shard is extracted once at the caps of the largest shard's counts."""
     root, dq, d = synthetic_panel_root
-    _, _, want = _fastsmc(root, dq, str(d / "meshless"))
-    f, _, got = _fastsmc(root, dq, str(d / f"mesh{S}_{caps}"), cpu_mesh(S),
-                         caps)
+    if caps is None:
+        _, _, want = _fastsmc(root, dq, str(d / "meshless"))
+        f, _, got = _fastsmc(root, dq, str(d / f"mesh{S}"), cpu_mesh(S))
+        assert want.count(b"\n") > 0 and got == want
+        return
+    counts = []
+    read_counts = ShardedDecoder.read_counts
+
+    def spy(cs):
+        counts.append(read_counts(cs))
+        return counts[-1]
+
+    monkeypatch.setattr(ShardedDecoder, "read_counts", staticmethod(spy))
+    runs = [_fastsmc(None, None, None, mesh, params=mosaic_params(
+        mosaic_panel, repo_root, str(d / f"mosaic_{tag}"), batch_size=128))
+        for tag, mesh in (("meshless", None), (f"mesh{S}", cpu_mesh(S)))]
+    (_, _, want), (f, _, got) = runs
+    assert len(counts) == 3 and all(len(c) == S for c in counts)
+    assert max(n_raw for c in counts for n_raw, _ in c) > 4096
+    assert f.stats["overflow_redos"] == 0
     assert want.count(b"\n") > 0 and got == want
-    if caps:
-        assert f.stats["overflow_redos"] > 0
 
 
 @pytest.mark.parametrize("S,bs", [(4, 16), (8, 16), (8, 4096)],

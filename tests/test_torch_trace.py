@@ -19,7 +19,9 @@ from fastsmc_tpu_torch import native
 from fastsmc_tpu_torch.io import writers
 from fastsmc_tpu_torch.pipelines import fastsmc as pipeline
 from fastsmc_tpu_torch.utils.timer import SpanRecorder
-from test_torch_pipeline import _tiny_params, tiny_panel  # noqa: F401
+from fastsmc_tpu_torch.engine.kernels import GpuDecoder
+from test_torch_pipeline import (_tiny_params, mosaic_panel,  # noqa: F401
+                                 tiny_panel)
 
 # each span of a FastSMC run and the spans it may open under (None: no
 # fastsmc.* span around it)
@@ -28,13 +30,13 @@ PARENTS = {
     "fastsmc.run": {None},
     "fastsmc.intake": {"fastsmc.run"},
     "fastsmc.dispatch": {"fastsmc.run"},
-    "fastsmc.decode.prologue": {"fastsmc.dispatch", "fastsmc.drain.redo"},
-    "fastsmc.decode.forward": {"fastsmc.dispatch", "fastsmc.drain.redo"},
-    "fastsmc.decode.backward": {"fastsmc.dispatch", "fastsmc.drain.redo"},
-    "fastsmc.extract": {"fastsmc.dispatch", "fastsmc.drain.redo"},
+    "fastsmc.decode.prologue": {"fastsmc.dispatch"},
+    "fastsmc.decode.forward": {"fastsmc.dispatch"},
+    "fastsmc.decode.backward": {"fastsmc.dispatch"},
+    "fastsmc.extract": {"fastsmc.dispatch"},
+    "fastsmc.dispatch.count_wait": {"fastsmc.dispatch"},
     "fastsmc.drain": {"fastsmc.run"},
-    "fastsmc.drain.wait": {"fastsmc.drain", "fastsmc.drain.redo"},
-    "fastsmc.drain.redo": {"fastsmc.drain"},
+    "fastsmc.drain.wait": {"fastsmc.drain"},
     "fastsmc.emit": {"fastsmc.run"},
     "fastsmc.checkpoint": {"fastsmc.run"},
     "fastsmc.writer.close": {"fastsmc.run"},
@@ -136,11 +138,18 @@ def test_binary_writer_spans_nest_in_the_emit(tmp_path):
 
 
 def _fastsmc(root, repo_root, out, **kw):
-    f = fastsmc_tpu_torch.FastSMC(_tiny_params(root, repo_root, out),
-                                  device="cpu", flush_group=1, **kw)
-    # tiny caps: every batch is redone at grown caps
-    f._seg_cap = f._kept_cap = f._pps_cap = 8
-    return f
+    return fastsmc_tpu_torch.FastSMC(_tiny_params(root, repo_root, out),
+                                     device="cpu", flush_group=1, **kw)
+
+
+def _mosaic_fastsmc(root, repo_root, out):
+    """Hashing on the mosaic panel, job 3 of 16, in batches of 512
+    candidates and flush groups of 2: batches hold up to ~6,000 level
+    boundaries, more than the JAX package's starting caps (raw and kept
+    4,096)."""
+    return fastsmc_tpu_torch.FastSMC(
+        _tiny_params(root, repo_root, out, batch_size=512, jobs=16,
+                     job_ind=3), device="cpu", flush_group=2)
 
 
 def _decompressed(path):
@@ -158,17 +167,27 @@ def _annotations(prof, path):
             and str(e.get("name", "")).startswith("fastsmc.")]
 
 
-def test_profiled_run_nests_its_spans_as_documented(tiny_panel, repo_root,
+def test_profiled_run_nests_its_spans_as_documented(mosaic_panel, repo_root,
                                                     tmp_path, monkeypatch):
     """Under a CPU profiler every span of the table appears as a
     user annotation of the main thread, inside the span the table names;
     the writer's and the scan's, on their threads, stay out of the
-    trace."""
+    trace. Its batches hold more runs than the JAX package's starting
+    caps; each waits once for its count, none is redone, and the records
+    are those of a run without the profiler."""
     monkeypatch.setattr(pipeline, "CHECKPOINT_DRAINS", 1)
+    counts = []
+    read_counts = GpuDecoder.read_counts
+
+    def spy(c):
+        counts.extend(read_counts(c))
+        return counts[-1:]
+
+    monkeypatch.setattr(GpuDecoder, "read_counts", staticmethod(spy))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        f = _fastsmc(tiny_panel, repo_root, str(tmp_path / "prof"))
-        f.run(verbose=False)
+        f = _mosaic_fastsmc(mosaic_panel, repo_root, str(tmp_path / "prof"))
+        path = f.run(verbose=False)
     spans = _annotations(prof, tmp_path / "trace.json")
     names = {s[2] for s in spans}
     assert names == set(PARENTS), names ^ set(PARENTS)
@@ -179,7 +198,12 @@ def test_profiled_run_nests_its_spans_as_documented(tiny_panel, repo_root,
         inner = min(around, key=lambda x: x[1] - x[0])[2] if around \
             else None
         assert inner in PARENTS[name], (name, inner)
-    assert f.stats["overflow_redos"] > 0
+    assert max(n_raw for n_raw, _ in counts) > 4096
+    assert f.stats["overflow_redos"] == 0
+    assert f.timer.stats()["fastsmc.dispatch.count_wait"].count \
+        == len(counts) == f.stats["flushes"]
+    plain = _mosaic_fastsmc(mosaic_panel, repo_root, str(tmp_path / "plain"))
+    assert _decompressed(plain.run(verbose=False)) == _decompressed(path)
     # the recorder saw the same structure, and the threads' spans
     st = f.timer.stats()
     assert set(st) == set(PARENTS) - {"fastsmc.init"} | set(THREAD_PARENTS)
@@ -200,7 +224,8 @@ def test_no_range_without_a_profiler(tiny_panel, repo_root, tmp_path,
     f = _fastsmc(tiny_panel, repo_root, str(tmp_path / "plain"))
     f.run(verbose=False)
     assert opened == []
-    assert f.timer.stats()["fastsmc.dispatch"].count == f.stats["flushes"]
+    assert f.timer.stats()["fastsmc.dispatch.count_wait"].count \
+        == f.stats["flushes"]
 
 
 def test_roofline_host_seconds_are_span_totals(tiny_panel, repo_root,
